@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Phases, one line each (or one line per checked shape):
+
+1. environment: ``nvidia-smi`` name and power limit, torch and CUDA
+   versions, the device;
+2. build: compiles the Hopper kernels from ``fetal_mri_segmentation_tpu_torch/
+   csrc`` and prints the seconds;
+3. kernels: each kernel against its plain PyTorch version at every shape
+   the serving slice gives it (depth-4, 32-filter U-Net on a batch of 8 64^3
+   patches), plus non-cubic and ragged-tile shapes that also cover the
+   other activations, with the tolerance and both times;
+4. slice: three synthetic ellipsoid NIfTI cases at a scanner-like raw shape
+   through ``fetal_mri_segmentation_tpu_torch.predict.main`` with
+   ``configs/fetal_unet.json``, both kernel switches on and random weights
+   from a seed; the kernels' launch counts over that run; the same
+   predictor with the switches off as the reference.
+
+Then one JSON line describing the kernels, and the last line
+``{"ok": true, "device": {...}}``. Any failure raises and the script exits
+non-zero; without CUDA it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Kernel check tolerance: max|kernel - ref| <= REL_TOL * max|ref| + ABS_TOL.
+# The kernel stores bf16 (relative rounding 2^-9) after an fp32 sum whose
+# order differs from cuDNN's; the reference is fp32 on the same
+# bf16-rounded inputs, so the expected error is one bf16 rounding of the
+# output, about 0.2% of max|ref|. 1e-2 leaves a 5x margin and still catches
+# a wrong tap, channel or parity, which moves outputs by O(max|ref|).
+REL_TOL, ABS_TOL = 1e-2, 1e-2
+# Slice tolerance on probabilities, kernels on against kernels off: the two
+# paths round each of the 14 bf16 3^3 conv outputs at different places
+# (after vs before the bias), a difference of up to one bf16 ulp per layer
+# that compounds through the net; the sigmoid's slope is at most 1/4.
+PROB_TOL = 2e-2
+
+B = 8  # patches per forward: the entry point's --patch-batch-size
+# (entry point, layer, batch, D, H, W, C_in, C_out): every kernel conv of
+# the depth-4/32 U-Net on 64^3 patches, then a non-cubic and a ragged shape
+CONV_SHAPES = [
+    ("conv3x3_flat", "enc0_conv2", B, 64, 64, 64, 32, 64),
+    ("conv3x3_flat", "enc1_conv1", B, 32, 32, 32, 64, 64),
+    ("conv3x3_flat", "enc1_conv2", B, 32, 32, 32, 64, 128),
+    ("conv3x3", "enc2_conv1", B, 16, 16, 16, 128, 128),
+    ("conv3x3", "enc2_conv2", B, 16, 16, 16, 128, 256),
+    ("conv3x3", "enc3_conv1", B, 8, 8, 8, 256, 256),
+    ("conv3x3", "enc3_conv2", B, 8, 8, 8, 256, 512),
+    ("conv3x3", "dec2_conv2", B, 16, 16, 16, 256, 256),
+    ("conv3x3", "dec1_conv2", B, 32, 32, 32, 128, 128),
+    ("conv3x3_flat", "dec0_conv2", B, 64, 64, 64, 64, 64),
+    ("conv3x3_flat", "non-cubic", 2, 12, 20, 28, 32, 64),
+    ("conv3x3_flat", "ragged", 3, 7, 9, 11, 24, 40),
+    ("conv3x3_flat", "ragged-K", 1, 3, 5, 4, 40, 8),
+]
+# (layer, batch, coarse D, H, W, C_up, C_skip, C_out) of the fused decoder
+DEC_SHAPES = [
+    ("dec2_conv1", B, 8, 8, 8, 512, 256, 256),
+    ("dec1_conv1", B, 16, 16, 16, 256, 128, 128),
+    ("dec0_conv1", B, 32, 32, 32, 128, 64, 64),
+    ("non-cubic", 2, 3, 4, 5, 32, 16, 24),
+    ("ragged", 3, 5, 3, 7, 24, 40, 40),
+]
+SLICE_LAYERS = {"enc", "dec"}
+# the slice's blocks use relu; the extra shapes cover the other activations
+ACTIVATION = {"non-cubic": "none", "ragged": "leaky_relu",
+              "ragged-K": "leaky_relu"}
+KERNELS = {
+    "conv3x3": ("fetal_mri_segmentation_tpu_torch/csrc/conv3x3.cu",
+                "fetal_mri_segmentation_tpu/ops/pallas_conv.py:43"),
+    "conv3x3_flat": ("fetal_mri_segmentation_tpu_torch/csrc/conv3x3.cu",
+                     "fetal_mri_segmentation_tpu/ops/pallas_conv_flat.py:83"),
+    "up_concat_conv3x3_kernel": (
+        "fetal_mri_segmentation_tpu_torch/csrc/dec0.cu",
+        "fetal_mri_segmentation_tpu/ops/pallas_dec0.py:123"),
+}
+
+
+def time_ms(torch, fn, iters: int = 10) -> float:
+    """Mean device milliseconds per call: CUDA events around ``iters``
+    calls after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def check(label, out, ref, stats, entry, is_slice, ms, plain_ms):
+    err = (out.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    tol = REL_TOL * scale + ABS_TOL
+    print(f"kernel {entry} {label}: max|diff| {err:.6g} <= tol {tol:.6g} "
+          f"(max|ref| {scale:.6g}); ms {ms:.6g} plain_ms {plain_ms:.6g}",
+          flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{entry} {label}: max|diff| {err} > {tol}")
+    s = stats.setdefault(entry, {"max_abs_err": 0.0, "ms": 0.0,
+                                 "plain_ms": 0.0})
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    if is_slice:
+        s["ms"] += ms
+        s["plain_ms"] += plain_ms
+
+
+def kernel_phase(torch, stats) -> None:
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(*shape, std=1.0):
+        x = torch.randn(*shape, device="cuda", generator=gen) * std
+        return x.to(torch.bfloat16)
+
+    for entry, layer, b, d, h, w, ci, co in CONV_SHAPES:
+        x = normal(b, d, h, w, ci)
+        wt = normal(3, 3, 3, ci, co, std=(27 * ci) ** -0.5)
+        bias = torch.randn(co, device="cuda", generator=gen) * 0.1
+        op = getattr(conv_ops, entry)
+        act = (ACTIVATION.get(layer, "relu"), 0.3)
+        out = op(x, wt, bias, *act)
+        torch.cuda.synchronize()
+        ref = conv_ops.conv3x3_reference(x.float(), wt.float(), bias, *act)
+        ms = time_ms(torch, lambda: op(x, wt, bias, *act))
+        plain_ms = time_ms(torch, lambda: conv_ops.conv3x3_reference(
+            x, wt, bias, *act))
+        check(f"{layer} {(b, d, h, w)} {ci}->{co} {act[0]}", out, ref, stats,
+              entry, layer[:3] in SLICE_LAYERS, ms, plain_ms)
+        del x, wt, out, ref
+
+    entry = "up_concat_conv3x3_kernel"
+    for layer, b, d, h, w, cu, cs, co in DEC_SHAPES:
+        xd = normal(b, d, h, w, cu)
+        skip = normal(b, 2 * d, 2 * h, 2 * w, cs)
+        k = normal(3, 3, 3, cu + cs, co, std=(27 * (cu + cs)) ** -0.5)
+        bias = torch.randn(co, device="cuda", generator=gen) * 0.1
+        act = (ACTIVATION.get(layer, "relu"), 0.3)
+        out = dec_ops.up_concat_conv3x3_kernel(xd, skip, k, bias, *act)
+        torch.cuda.synchronize()
+        ref = dec_ops.up_concat_conv3x3_reference(
+            xd.float(), skip.float(), k.float(), bias, *act)
+        ms = time_ms(torch, lambda: dec_ops.up_concat_conv3x3_kernel(
+            xd, skip, k, bias, *act))
+        plain_ms = time_ms(torch, lambda: dec_ops.up_concat_conv3x3_reference(
+            xd, skip, k, bias, *act))
+        check(f"{layer} {(b, d, h, w)} {cu}+{cs}->{co} {act[0]}", out, ref,
+              stats, entry, layer[:3] in SLICE_LAYERS, ms, plain_ms)
+        del xd, skip, k, out, ref
+
+
+def write_cases(directory: Path, n: int = 3, shape=(160, 160, 110)):
+    """Synthetic fetal-brain-like cases: a noisy bright ellipsoid with its
+    truth mask, anisotropic voxels, as <case>/volume.nii.gz + truth."""
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import save_nifti
+
+    grids = np.mgrid[: shape[0], : shape[1], : shape[2]].astype(np.float32)
+    paths = []
+    for i in range(n):
+        rng = np.random.default_rng(i)
+        center = np.array(shape) / 2 + rng.uniform(-8, 8, 3)
+        radii = np.array(shape) * rng.uniform(0.2, 0.3, 3)
+        dist = sum(((g - c) / r) ** 2 for g, c, r in zip(grids, center, radii))
+        truth = (dist < 1).astype(np.uint8)
+        vol = (truth * 2.0 + rng.normal(0, 0.3, shape)).astype(np.float32)
+        case = directory / f"case_{i}"
+        case.mkdir(parents=True)
+        affine = np.diag([0.8, 0.8, 2.0, 1.0])
+        save_nifti(vol, str(case / "volume.nii.gz"), affine=affine)
+        save_nifti(truth, str(case / "truth.nii.gz"), affine=affine)
+        paths.append(str(case))
+    return paths
+
+
+def slice_phase(torch, work: Path) -> dict:
+    import dataclasses
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch import predict as entry
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.inference.predict import (
+        build_serving_predictor, load_serving_model, preprocess_case)
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti
+    from fetal_mri_segmentation_tpu_torch.utils.params import init_flax_like
+
+    config = Config.load(str(ROOT / "configs" / "fetal_unet.json"))
+    config.use_pallas_conv = True
+    config.use_pallas_dec0 = True
+    params = work / "params.npz"
+    np.savez(params, **init_flax_like(config, seed=0))
+    inputs = write_cases(work / "cases")
+    out_dir = work / "prediction"
+
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    n = entry.main(config, str(params), inputs, output_dir=str(out_dir),
+                   device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"slice: {n} cases of {config.image_shape} through "
+          f"predict.main in {seconds:.4f} s ({seconds / n:.4f} s/case, "
+          f"model build and first-call set-up included); launches "
+          f"{launches}", flush=True)
+    if n != len(inputs):
+        raise AssertionError(f"predicted {n} of {len(inputs)} cases")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was not launched by the slice")
+    for path in inputs:
+        pred = out_dir / Path(path).name / "prediction.nii.gz"
+        label = np.asarray(load_nifti(str(pred)).get_fdata())
+        if label.shape != tuple(config.image_shape):
+            raise AssertionError(f"{pred}: shape {label.shape}")
+        if not set(np.unique(label)) <= {0.0, 1.0}:
+            raise AssertionError(f"{pred}: values {np.unique(label)}")
+
+    # the same predictor with the switches off is the reference
+    config_off = dataclasses.replace(config, use_pallas_conv=False,
+                                     use_pallas_dec0=False)
+    on = build_serving_predictor(
+        load_serving_model(config, str(params), "cuda"), config,
+        overlap=config.validation_patch_overlap, device="cuda")
+    off = build_serving_predictor(
+        load_serving_model(config_off, str(params), "cuda"), config_off,
+        overlap=config.validation_patch_overlap, device="cuda")
+    t0 = time.perf_counter()
+    data, _, _ = preprocess_case(inputs[0], config)
+    pre_s = time.perf_counter() - t0
+    p_on = on.predict_probabilities(data)
+    p_off = off.predict_probabilities(data)
+    if p_on.shape != (config.n_labels,) + tuple(config.image_shape):
+        raise AssertionError(f"probabilities shaped {tuple(p_on.shape)}")
+    if not bool(torch.isfinite(p_on).all()):
+        raise AssertionError("non-finite probabilities")
+    diff = (p_on - p_off).abs().max().item()
+    lab_on, lab_off = p_on[0] > 0.5, p_off[0] > 0.5
+    far = (p_off[0] - 0.5).abs() >= PROB_TOL
+    flips = int((lab_on != lab_off).sum().item())
+    far_flips = int(((lab_on != lab_off) & far).sum().item())
+
+    def case_seconds(predictor):
+        predictor.predict_labels(data)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            predictor.predict_labels(data)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 3
+
+    on_s, off_s = case_seconds(on), case_seconds(off)
+    print(f"slice check: max|p_on - p_off| {diff:.6g} <= tol {PROB_TOL} "
+          f"(p in [{p_on.min().item():.6g}, {p_on.max().item():.6g}], "
+          f"{int(lab_on.sum().item())} foreground voxels); label flips "
+          f"{flips}, {far_flips} with |p - 0.5| >= tol; per case: "
+          f"preprocess {pre_s:.4f} s, predict_labels {on_s:.4f} s with "
+          f"kernels, {off_s:.4f} s without", flush=True)
+    if not diff <= PROB_TOL:
+        raise AssertionError(f"kernel-on vs kernel-off: {diff} > {PROB_TOL}")
+    if far_flips:
+        raise AssertionError(f"{far_flips} label flips away from 0.5")
+    return launches
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script needs an NVIDIA GPU")
+    from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    kind = torch.cuda.get_device_name(0)
+    print(f"environment: python {sys.version.split()[0]}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}, device {kind}, "
+          f"{torch.cuda.device_count()} visible", flush=True)
+    torch.backends.cudnn.allow_tf32 = False  # fp32 references stay fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    lib_path = cuda_lib.build()
+    cuda_lib.library()
+    ptxas = [line.strip() for line in
+             lib_path.with_suffix(".log").read_text().splitlines()
+             if "registers" in line or "spill" in line]
+    print(f"build: {time.perf_counter() - t0:.4f} s -> {lib_path.name}; "
+          f"ptxas: {' | '.join(ptxas)}",
+          flush=True)
+
+    stats = {}
+    kernel_phase(torch, stats)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        launches = slice_phase(torch, Path(work))
+
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[name],
+                **stats[name]}
+               for name, (src, replaces) in KERNELS.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,35 @@
+"""Model factory of the port (unet only)."""
+
+from __future__ import annotations
+
+import torch
+
+from fetal_mri_segmentation_tpu_torch.config import check_supported
+from fetal_mri_segmentation_tpu_torch.models.unet3d import UNet3D
+from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
+
+__all__ = ["UNet3D", "build_model"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_model(config, device="cpu") -> UNet3D:
+    """The configured ``UNet3D`` on ``device``, in eval mode.
+
+    The Hopper kernels take bf16 only: on a CUDA device a float32 config
+    with ``use_pallas_conv`` or ``use_pallas_dec0`` on raises."""
+    check_supported(config)
+    dtype = _DTYPES[config.compute_dtype]
+    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+        for key in ("use_pallas_conv", "use_pallas_dec0"):
+            if getattr(config, key):
+                raise ValueError(
+                    f"{key}=true selects a Hopper kernel, which runs in "
+                    f"bf16 only; compute_dtype={config.compute_dtype!r}")
+    dev = resolve_device(device)
+    return UNet3D(
+        in_channels=config.nb_channels, n_labels=config.n_labels,
+        depth=config.depth, n_base_filters=config.n_base_filters,
+        activation_name=config.activation_name, dtype=dtype,
+        use_kernel_conv=config.use_pallas_conv,
+        use_kernel_dec0=config.use_pallas_dec0, device=dev).eval()

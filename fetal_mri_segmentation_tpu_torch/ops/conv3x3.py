@@ -1,0 +1,143 @@
+"""Fused 3x3x3 conv + bias + activation: the Hopper kernel and its plain twin.
+
+Port of the two TPU conv kernels, which share one contract
+(``fetal_mri_segmentation_tpu/ops/pallas_conv.py::conv3x3``, the halo-slab
+kernel K1, and ``ops/pallas_conv_flat.py::conv3x3_flat`` /
+``conv3x3_chain``, the flat-plane kernel K2)::
+
+    y[b, d, h, w, co] = act(sum_{kd,kh,kw,ci} x[b, d+kd-1, h+kh-1, w+kw-1, ci]
+                            * W[kd, kh, kw, ci, co] + bias[co])
+
+NDHWC activations, DHWIO weights, fp32 bias, SAME padding, stride 1,
+activation in relu / leaky_relu / none. One CUDA kernel
+(``csrc/conv3x3.cu``) serves all three entry points: the TPU's flat layout
+was a lane-rotation device and is not carried over, so ``conv3x3_chain`` is
+successive NDHWC launches with no relayout between them.
+
+On a CPU tensor each entry point runs :func:`conv3x3_reference` (``F.conv3d``
+plus bias and activation). On a CUDA tensor it launches the kernel (bf16
+operands, fp32 bias) or raises. Each entry point counts its launches in its
+``launches`` attribute; ``conv3x3_chain`` launches through ``conv3x3_flat``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
+
+
+def conv3x3_available(ci: int, co: int) -> bool:
+    """The one eligibility gate, decided before any launch: C_in >= 8 (the
+    1-channel stem keeps ``F.conv3d``, as it kept XLA on the TPU) and both
+    channel counts multiples of 8 (the kernel moves 16-byte vectors)."""
+    return ci >= 8 and ci % 8 == 0 and co % 8 == 0
+
+
+def conv3d_ndhwc(x: torch.Tensor, weight_oidhw: torch.Tensor,
+                 bias: torch.Tensor | None = None,
+                 padding: int = 0) -> torch.Tensor:
+    """``F.conv3d`` on NDHWC activations with a PyTorch OIDHW weight.
+
+    The permuted input is a channels_last_3d view, and the weight is passed
+    in the same memory format, so the convolution reads and writes
+    channels-last and the result is NDHWC without a relayout."""
+    w = weight_oidhw.contiguous(memory_format=torch.channels_last_3d)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=padding)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def apply_activation(y: torch.Tensor, activation: str,
+                     negative_slope: float) -> torch.Tensor:
+    if activation == "relu":
+        return F.relu(y)
+    if activation == "leaky_relu":
+        return F.leaky_relu(y, negative_slope)
+    if activation == "none":
+        return y
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def conv3x3_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                      activation: str = "relu",
+                      negative_slope: float = 0.01) -> torch.Tensor:
+    """Plain PyTorch version: conv in x's dtype, bias and activation in
+    fp32, result in x's dtype (the kernel's fp32-accumulate, bf16-store
+    contract)."""
+    y = conv3d_ndhwc(x, w.to(x.dtype).permute(4, 3, 0, 1, 2), padding=1)
+    y = apply_activation(y.float() + bias.float(), activation, negative_slope)
+    return y.to(x.dtype)
+
+
+def _check(name: str, x: torch.Tensor, w: torch.Tensor,
+           bias: torch.Tensor) -> None:
+    if x.dim() != 5 or w.shape[:3] != (3, 3, 3) or w.shape[3] != x.shape[-1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "are not NDHWC / (3, 3, 3, C_in, C_out)")
+    if bias.shape != (w.shape[4],):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} != (C_out,)")
+    if not conv3x3_available(w.shape[3], w.shape[4]):
+        raise ValueError(f"{name}: C_in={w.shape[3]}, C_out={w.shape[4]} "
+                         "fails conv3x3_available (C_in >= 8, channels % 8)")
+
+
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+            activation: str, negative_slope: float) -> torch.Tensor:
+    cuda_lib.require_cuda_bf16(name, x=x, w=w, bias=bias)
+    B, D, H, W, ci = x.shape
+    co = w.shape[4]
+    y = torch.empty((B, D, H, W, co), dtype=torch.bfloat16, device=x.device)
+    lib = cuda_lib.library()
+    with torch.cuda.device(x.device):
+        err = lib.fetal_conv3x3_bf16(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            B, D, H, W, ci, co, cuda_lib.ACTIVATIONS[activation],
+            float(negative_slope), torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check_launch(name, err)
+    return y
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+            activation: str = "relu",
+            negative_slope: float = 0.01) -> torch.Tensor:
+    """Port of K1 (``pallas_conv.py::conv3x3``): fused conv on NDHWC."""
+    _check("conv3x3", x, w, bias)
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, w, bias, activation, negative_slope)
+    y = _launch("conv3x3", x, w, bias, activation, negative_slope)
+    conv3x3.launches += 1
+    return y
+
+
+def conv3x3_flat(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 activation: str = "relu",
+                 negative_slope: float = 0.3) -> torch.Tensor:
+    """Port of K2 (``pallas_conv_flat.py::conv3x3_flat``): the same
+    contract for any C_in >= 8; the same kernel as :func:`conv3x3`."""
+    _check("conv3x3_flat", x, w, bias)
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, w, bias, activation, negative_slope)
+    y = _launch("conv3x3_flat", x, w, bias, activation, negative_slope)
+    conv3x3_flat.launches += 1
+    return y
+
+
+conv3x3.launches = 0
+conv3x3_flat.launches = 0
+
+
+def conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                  biases: Sequence[torch.Tensor],
+                  activations: Sequence[str] = ("relu",),
+                  negative_slope: float = 0.01) -> torch.Tensor:
+    """A chain of fused convs (a U-Net level's conv pair): successive NDHWC
+    launches, each output feeding the next with no relayout."""
+    if not len(weights) == len(biases) == len(activations):
+        raise ValueError("conv3x3_chain: weights, biases and activations "
+                         "differ in length")
+    for w, b, act in zip(weights, biases, activations):
+        x = conv3x3_flat(x, w.to(x.dtype), b, act, negative_slope)
+    return x

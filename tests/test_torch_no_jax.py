@@ -1,0 +1,103 @@
+"""The port runs where there is no JAX stack: in a subprocess whose import
+system refuses jax, jaxlib, flax, optax, orbax and h5py, every port module
+imports and a tiny bf16 predict runs on the CPU through the kernel routes;
+``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
+exits non-zero without printing a result, in the repository and alone."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r'''
+import importlib, pkgutil, sys
+
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py"}
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is refused in this test")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+
+import numpy as np
+import torch
+
+import fetal_mri_segmentation_tpu_torch as pkg
+
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+
+from fetal_mri_segmentation_tpu_torch.config import Config
+from fetal_mri_segmentation_tpu_torch.models import build_model
+from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
+    SlidingWindowPredictor)
+from fetal_mri_segmentation_tpu_torch.ops import conv3x3, dec0
+
+torch.set_num_threads(1)
+cfg = Config(image_shape=(12, 12, 12), patch_shape=(8, 8, 8), depth=2,
+             n_base_filters=8, use_pallas_conv=True, use_pallas_dec0=True)
+pred = SlidingWindowPredictor(build_model(cfg, "cpu"), cfg, cfg.image_shape,
+                              overlap=2)
+x = np.random.default_rng(0).normal(size=(1, 12, 12, 12)).astype(np.float32)
+prob = pred(x)
+labels = pred.predict_labels(x)
+assert prob.shape == (1, 12, 12, 12) and np.isfinite(prob).all()
+assert labels.shape == (12, 12, 12) and labels.dtype == np.uint8
+assert conv3x3.conv3x3_flat.launches == 0
+assert dec0.up_concat_conv3x3_kernel.launches == 0
+try:
+    build_model(cfg, "cuda")
+except RuntimeError as e:
+    assert "cuda" in str(e)
+else:
+    raise AssertionError("device='cuda' did not raise")
+loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+assert not loaded, loaded
+print("imported", len(names), "modules")
+'''
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def test_port_imports_and_predicts_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "imported" in proc.stdout
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_cuda(alone, tmp_path):
+    if alone:
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd, env = tmp_path, {k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"}
+    else:
+        cwd, env = ROOT, _env()
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
