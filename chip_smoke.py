@@ -8,11 +8,14 @@ Phases, one line each (or one line per checked shape):
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA
    versions, the device;
 2. build: compiles the Hopper kernels from ``fetal_mri_segmentation_tpu_torch/
-   csrc`` and prints the seconds;
+   csrc``, prints the seconds and ptxas's registers, spills and shared
+   memory, and asserts from ``cuobjdump -sass`` that every instance of
+   ``conv3x3_kernel`` and ``dec0_kernel`` issues ``HGMMA`` (wgmma);
 3. kernels: each kernel against its plain PyTorch version at every shape
    the serving slice gives it (depth-4, 32-filter U-Net on a batch of 8 64^3
    patches), plus non-cubic and ragged-tile shapes that also cover the
-   other activations, with the tolerance and both times;
+   other activations, with the tolerance, both times, the kernel's TFLOP/s
+   and the time of its one-off weight preparation;
 4. slice: three synthetic ellipsoid NIfTI cases at a scanner-like raw shape
    through ``fetal_mri_segmentation_tpu_torch.predict.main`` with
    ``configs/fetal_unet.json``, both kernel switches on and random weights
@@ -50,7 +53,8 @@ PROB_TOL = 2e-2
 
 B = 8  # patches per forward: the entry point's --patch-batch-size
 # (entry point, layer, batch, D, H, W, C_in, C_out): every kernel conv of
-# the depth-4/32 U-Net on 64^3 patches, then a non-cubic and a ragged shape
+# the depth-4/32 U-Net on 64^3 patches, then non-cubic shapes and shapes with
+# a ragged tile in M, K (C_in past the last full K step) and N
 CONV_SHAPES = [
     ("conv3x3_flat", "enc0_conv2", B, 64, 64, 64, 32, 64),
     ("conv3x3_flat", "enc1_conv1", B, 32, 32, 32, 64, 64),
@@ -65,6 +69,7 @@ CONV_SHAPES = [
     ("conv3x3_flat", "non-cubic", 2, 12, 20, 28, 32, 64),
     ("conv3x3_flat", "ragged", 3, 7, 9, 11, 24, 40),
     ("conv3x3_flat", "ragged-K", 1, 3, 5, 4, 40, 8),
+    ("conv3x3", "ragged-N", 2, 5, 6, 20, 128, 200),
 ]
 # (layer, batch, coarse D, H, W, C_up, C_skip, C_out) of the fused decoder
 DEC_SHAPES = [
@@ -77,7 +82,7 @@ DEC_SHAPES = [
 SLICE_LAYERS = {"enc", "dec"}
 # the slice's blocks use relu; the extra shapes cover the other activations
 ACTIVATION = {"non-cubic": "none", "ragged": "leaky_relu",
-              "ragged-K": "leaky_relu"}
+              "ragged-K": "leaky_relu", "ragged-N": "none"}
 KERNELS = {
     "conv3x3": ("fetal_mri_segmentation_tpu_torch/csrc/conv3x3.cu",
                 "fetal_mri_segmentation_tpu/ops/pallas_conv.py:43"),
@@ -105,12 +110,14 @@ def time_ms(torch, fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def check(label, out, ref, stats, entry, is_slice, ms, plain_ms):
+def check(label, out, ref, stats, entry, is_slice, ms, plain_ms, prep_ms,
+          flop):
     err = (out.float() - ref).abs().max().item()
     scale = ref.abs().max().item()
     tol = REL_TOL * scale + ABS_TOL
     print(f"kernel {entry} {label}: max|diff| {err:.6g} <= tol {tol:.6g} "
-          f"(max|ref| {scale:.6g}); ms {ms:.6g} plain_ms {plain_ms:.6g}",
+          f"(max|ref| {scale:.6g}); ms {ms:.6g} plain_ms {plain_ms:.6g} "
+          f"prep_ms {prep_ms:.6g}; {flop / ms / 1e9:.6g} TFLOP/s",
           flush=True)
     if not err <= tol:
         raise AssertionError(f"{entry} {label}: max|diff| {err} > {tol}")
@@ -120,6 +127,8 @@ def check(label, out, ref, stats, entry, is_slice, ms, plain_ms):
     if is_slice:
         s["ms"] += ms
         s["plain_ms"] += plain_ms
+        s.setdefault("prep", 0.0)
+        s["prep"] += prep_ms
 
 
 def kernel_phase(torch, stats) -> None:
@@ -141,11 +150,14 @@ def kernel_phase(torch, stats) -> None:
         out = op(x, wt, bias, *act)
         torch.cuda.synchronize()
         ref = conv_ops.conv3x3_reference(x.float(), wt.float(), bias, *act)
+        # the K-major weight is made at the first call and kept with wt
         ms = time_ms(torch, lambda: op(x, wt, bias, *act))
         plain_ms = time_ms(torch, lambda: conv_ops.conv3x3_reference(
             x, wt, bias, *act))
+        prep_ms = time_ms(torch, lambda: wt.permute(4, 0, 1, 2, 3).contiguous())
         check(f"{layer} {(b, d, h, w)} {ci}->{co} {act[0]}", out, ref, stats,
-              entry, layer[:3] in SLICE_LAYERS, ms, plain_ms)
+              entry, layer[:3] in SLICE_LAYERS, ms, plain_ms, prep_ms,
+              2 * b * d * h * w * 27 * ci * co)
         del x, wt, out, ref
 
     entry = "up_concat_conv3x3_kernel"
@@ -159,13 +171,44 @@ def kernel_phase(torch, stats) -> None:
         torch.cuda.synchronize()
         ref = dec_ops.up_concat_conv3x3_reference(
             xd.float(), skip.float(), k.float(), bias, *act)
+        # the pre-summed K-major weights are made at the first call, kept
+        # with k
         ms = time_ms(torch, lambda: dec_ops.up_concat_conv3x3_kernel(
             xd, skip, k, bias, *act))
         plain_ms = time_ms(torch, lambda: dec_ops.up_concat_conv3x3_reference(
             xd, skip, k, bias, *act))
+        prep_ms = time_ms(torch, lambda: dec_ops.kernel_weights(k, cu))
         check(f"{layer} {(b, d, h, w)} {cu}+{cs}->{co} {act[0]}", out, ref,
-              stats, entry, layer[:3] in SLICE_LAYERS, ms, plain_ms)
+              stats, entry, layer[:3] in SLICE_LAYERS, ms, plain_ms, prep_ms,
+              2 * b * 8 * d * h * w * (8 * cu + 27 * cs) * co)
         del xd, skip, k, out, ref
+    for entry, s in stats.items():
+        print(f"slice sum {entry}: kernel {s['ms']:.6g} ms (+ one-off weight "
+              f"preparation {s.pop('prep', 0.0):.6g} ms) against plain "
+              f"{s['plain_ms']:.6g} ms", flush=True)
+
+
+def wgmma_check(lib_path: Path) -> str:
+    """Every compiled instance of the two conv kernels issues HGMMA (the
+    SASS of wgmma.mma_async); a fall back to mma.sync fails here."""
+    from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
+
+    sass = subprocess.run([cuda_lib.cuda_tool("cuobjdump"), "-sass",
+                           str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        for kernel in ("conv3x3_kernel", "dec0_kernel"):
+            if kernel in name:
+                counts[name] = block.count("HGMMA")
+    for kernel in ("conv3x3_kernel", "dec0_kernel"):
+        if not any(kernel in name for name in counts):
+            raise AssertionError(f"{kernel} is not in the SASS of {lib_path}")
+    missing = [name for name, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"no HGMMA in {missing}")
+    return ", ".join(f"{name} {n}" for name, n in sorted(counts.items()))
 
 
 def write_cases(directory: Path, n: int = 3, shape=(160, 160, 110)):
@@ -314,9 +357,12 @@ def main() -> None:
     cuda_lib.library()
     ptxas = [line.strip() for line in
              lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in line or "spill" in line]
+             if any(k in line for k in ("entry function", "registers",
+                                        "spill", "warning"))]
     print(f"build: {time.perf_counter() - t0:.4f} s -> {lib_path.name}; "
           f"ptxas: {' | '.join(ptxas)}",
+          flush=True)
+    print(f"build: HGMMA instructions per kernel: {wgmma_check(lib_path)}",
           flush=True)
 
     stats = {}

@@ -1,5 +1,5 @@
 // Fused 3x3x3 convolution + bias + activation, stride 1, SAME padding, as an
-// implicit GEMM on Hopper's tensor cores.
+// implicit GEMM on Hopper's tensor cores (wgmma fed by TMA, igemm.cuh).
 //
 // Replaces both TPU kernels of the conv contract:
 //   fetal_mri_segmentation_tpu/ops/pallas_conv.py::_kernel (halo-slab
@@ -7,98 +7,111 @@
 //   fetal_mri_segmentation_tpu/ops/pallas_conv_flat.py::_flat_kernel (the
 //     zero-ring flat-plane layout for any C_in >= 8).
 // The flat layout existed so that a conv tap is a lane rotation on the TPU;
-// here every tap is a gathered A tile read straight from NDHWC, so one kernel
-// covers both contracts and consecutive convs chain without a relayout.
+// here every tap is a TMA box read straight from NDHWC, so one kernel covers
+// both contracts and consecutive convs chain without a relayout.
 //
 //   y[b,d,h,w,co] = act(sum_{kd,kh,kw,ci} x[b,d+kd-1,h+kh-1,w+kw-1,ci]
 //                       * W[kd,kh,kw,ci,co] + bias[co])
 //
-// GEMM view: M = B*D*H*W output voxels, N = C_out, K = 27*C_in. The DHWIO
-// weight is already the (27*C_in, C_out) row-major B matrix.
+// GEMM view: M = B*D*H*W output voxels, N = C_out, K = 27*C_in. The B
+// operand is the weight prepared once as (C_out, 27, C_in), K-major.
 //
 // What bounds it on the H100: arithmetic. K >= 27*32 = 864 and every
-// activation tile is reused by 64 output channels, so the U-Net's convs sit
-// far above the 295 FLOP/byte ridge of bf16 on this card; the limit is how
-// close the tensor cores get to their peak. This first version uses
-// mma.sync-class products (wmma 16x16x16) with a double-buffered cp.async
-// pipeline, which keeps the tensor cores fed at a fraction of the wgmma
-// rate; TMA + wgmma + a persistent schedule are the next step.
+// activation tile is reused by up to 128 output channels, so the U-Net's
+// convs sit far above the 295 FLOP/byte ridge of bf16 on this card; the
+// limit is how close the tensor cores get to their peak, and in front of
+// them how fast shared memory takes the TMA tiles and feeds the products.
+// The previous version (wmma 16x16x16, two cp.async stages, 32-channel K
+// steps) held them near 125 TFLOP/s.
+//
+// What this design does about it: wgmma m64n128k16 from shared memory, a
+// TMA ring of 4 or 8 stages, a producer warp and two consumer warpgroups,
+// persistent blocks (igemm.cuh). A tile's voxels are a spatial box
+// (TD, TH, TW) -- 128 voxels, e.g. (1, 4, 32) at 32^3 and (2, 8, 8) at 8^3,
+// or 256 for C_out <= 64, e.g. (1, 4, 64) at 64^3 -- so the activation tile
+// of one (tap, KB-channel chunk) is a single 5-D TMA box of x at
+// (c0, w0+kw-1, h0+kh-1, d0+kd-1, b): its smem image [td][th][tw][c] is the
+// K-major tile wgmma reads, and the hardware's zero fill outside the tensor
+// is the SAME padding (negative coordinates included) and the ragged K
+// (channels past C_in) at once. KB is 64 (128-byte rows and swizzle), or 32
+// (64-byte rows and swizzle) where C_in <= 32, so that enc0_conv2
+// (C_in = 32) spends no products on zeros; a ragged C_in still does (40
+// runs as 64). Boxes, KB and the N tile (64 where C_out <= 64, else 128)
+// come from ops/conv3x3.py::tile_plan.
 #include "igemm.cuh"
 
 namespace fetal {
 
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, bf16* __restrict__ y, int B, int D, int H,
-                   int W, int Ci, int Co, int act, float slope) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  const long long M = static_cast<long long>(B) * D * H * W;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
+struct ConvMaps {
+  CUtensorMap x;  // (C_in, W, H, D, B), box (KB, TW, TH, TD, 1)
+  CUtensorMap w;  // (C_in, 27, C_out), box (KB, 1, BN)
+};
 
-  // This thread gathers channel group q (8 channels) of tile rows
-  // tid/4 and tid/4 + 64; decode their voxel coordinates once.
-  const int q = tid & 3;
-  int rd[2], rh[2], rw[2];
-  long long rvox[2];
-  bool rok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long m = m0 + (tid >> 2) + i * 64;
-    rok[i] = m < M;
-    const long long mm = rok[i] ? m : 0;
-    rvox[i] = mm;
-    rw[i] = static_cast<int>(mm % W);
-    const long long t = mm / W;
-    rh[i] = static_cast<int>(t % H);
-    rd[i] = static_cast<int>((t / H) % D);
-  }
+// Field order = ops/conv3x3.py::ConvPlan.geom.
+struct ConvGeom {
+  int B, D, H, W, Co, chunks;
+  TileGrid grid;
+};
 
-  const int chunks = (Ci + kBK - 1) / kBK;
-  const int n_iters = 27 * chunks;
-  const long long plane = static_cast<long long>(H) * W;
-
-  auto load_stage = [&](int it, bf16* as, bf16* bs) {
+template <int BN, int KB>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_kernel(const __grid_constant__ ConvMaps maps, const ConvGeom g,
+                   const float* __restrict__ bias, bf16* __restrict__ y, int act, float slope) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int chunks = g.chunks;
+  // K step it = (tap, chunk), tap = kd*9 + kh*3 + kw
+  auto issue = [=, &maps](const Tile& t, int it, uint32_t a_dst, uint32_t b_dst, uint32_t bar) {
     const int tap = it / chunks;
-    const int c0 = (it - tap * chunks) * kBK;
+    const int c0 = (it - tap * chunks) * KB;
     const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
-    const int c = c0 + q * 8;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int d = rd[i] + kd - 1, h = rh[i] + kh - 1, ww = rw[i] + kw - 1;
-      const bool ok = rok[i] && c < Ci && d >= 0 && d < D && h >= 0 && h < H && ww >= 0 && ww < W;
-      const bf16* src =
-          ok ? x + (rvox[i] + (kd - 1) * plane + (kh - 1) * W + (kw - 1)) * Ci + c : x;
-      cp_async16(as + ((tid >> 2) + i * 64) * kALd + q * 8, src, ok);
-    }
-    load_b_tile(bs, w + static_cast<long long>(tap * Ci + c0) * Co, min(kBK, Ci - c0), n0, Co, w);
+    tma_load_5d(a_dst, &maps.x, bar, c0, t.w0 + kw - 1, t.h0 + kh - 1, t.d0 + kd - 1, t.b);
+    tma_load_3d(b_dst, &maps.w, bar, c0, tap, t.n0);
   };
-
-  FragC acc[2][2];
-  main_loop(smem, n_iters, load_stage, acc, wm, wn);
-  epilogue(smem, acc, wm, wn, bias, y, n0, Co, act, slope, [&](int r) -> long long {
-    const long long m = m0 + r;
-    return m < M ? m * Co : -1;
-  });
+  auto row_offset = [=](const Tile& t, int r) -> long long {
+    const TileGrid& q = g.grid;
+    const int d = t.d0 + r / (q.TH * q.TW), h = t.h0 + (r / q.TW) % q.TH, w = t.w0 + r % q.TW;
+    if (d >= g.D || h >= g.H || w >= g.W) return -1;
+    return (((static_cast<long long>(t.b) * g.D + d) * g.H + h) * g.W + w) * g.Co;
+  };
+  igemm<BN, KB>(smem, g.grid, g.grid.m_tiles * g.grid.n_tiles, 27 * chunks, issue, bias, y,
+                g.Co, act, slope, row_offset);
 }
 
 }  // namespace fetal
 
-// x: (B, D, H, W, Ci) bf16, w: (3, 3, 3, Ci, Co) bf16, bias: (Co,) fp32,
-// y: (B, D, H, W, Co) bf16, all contiguous. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-extern "C" int fetal_conv3x3_bf16(const void* x, const void* w, const void* bias, void* y, int B,
-                                  int D, int H, int W, int Ci, int Co, int act, float slope,
+// specs: two tensor-map specs (x, then the (C_out, 27, C_in) weight) of
+// kMapSpecLen integers; geom: the 14 ConvGeom integers; bias (C_out,) fp32;
+// y (B, D, H, W, C_out) bf16 contiguous. Launches `blocks` persistent
+// blocks of N tile `bn` and K step `kb` on `stream`; returns 0, a
+// cudaError_t, or an encode error.
+extern "C" int fetal_conv3x3_bf16(const long long* specs, const int* geom, const void* bias,
+                                  void* y, int bn, int kb, int blocks, int act, float slope,
                                   void* stream) {
   using namespace fetal;
-  const long long M = static_cast<long long>(B) * D * H * W;
-  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), (Co + kBN - 1) / kBN);
-  conv3x3_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), B, D, H, W, Ci, Co, act, slope);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap m[2];
+  if (const int err = encode_maps(m, specs, 2)) return err;
+  const ConvMaps maps{m[0], m[1]};
+  const ConvGeom g{geom[0],
+                   geom[1],
+                   geom[2],
+                   geom[3],
+                   geom[4],
+                   geom[5],
+                   {geom[6], geom[7], geom[8], geom[9], geom[10], geom[11], geom[12], geom[13]}};
+  const float* b = static_cast<const float*>(bias);
+  bf16* out = static_cast<bf16*>(y);
+  const dim3 grid(blocks);
+  if (bn == 128 && kb == 64)
+    return launch(conv3x3_kernel<128, 64>, grid, Smem<128, 64>::kBytes, stream, maps, g, b, out,
+                  act, slope);
+  if (bn == 64 && kb == 64)
+    return launch(conv3x3_kernel<64, 64>, grid, Smem<64, 64>::kBytes, stream, maps, g, b, out,
+                  act, slope);
+  if (bn == 128 && kb == 32)
+    return launch(conv3x3_kernel<128, 32>, grid, Smem<128, 32>::kBytes, stream, maps, g, b, out,
+                  act, slope);
+  if (bn == 64 && kb == 32)
+    return launch(conv3x3_kernel<64, 32>, grid, Smem<64, 32>::kBytes, stream, maps, g, b, out,
+                  act, slope);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

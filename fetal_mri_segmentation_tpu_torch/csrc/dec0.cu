@@ -1,5 +1,6 @@
 // Fused decoder level: nearest x2 upsample + concat + 3x3x3 conv + bias +
-// activation, as 8 output-parity implicit GEMMs at coarse resolution.
+// activation, as 8 output-parity implicit GEMMs at coarse resolution, on
+// Hopper's tensor cores (wgmma fed by TMA, igemm.cuh).
 //
 // Replaces fetal_mri_segmentation_tpu/ops/pallas_dec0.py::_dec0_kernel.
 //
@@ -13,133 +14,127 @@
 // one GEMM row reads
 //   8 up taps:    x_deep[a+r1+j1-1, b+r2+j2-1, c+r3+j3-1, :],  j in {0,1}^3
 //   27 skip taps: skip[2a+r1+k1-1, 2b+r2+k2-1, 2c+r3+k3-1, :], k in {0,1,2}^3
-// so K = 8*C_up + 27*C_skip. blockIdx.z selects the parity and with it the
-// (8*C_up, C_out) block of the pre-summed up weights; the (27*C_skip, C_out)
-// skip weights are shared by all 8. Both operands are gathered straight from
-// NDHWC: no upsampled tensor, no concat and no parity relayout is ever
-// written, and the output lands in the fine NDHWC tensor directly (the TPU
-// kernel's parity-block layout and its interleave pass are not needed).
+// so K = 8*C_up + 27*C_skip. Each output tile has one parity, which selects
+// the (C_out, 8, C_up) block of the pre-summed up weights; the (C_out, 27,
+// C_skip) skip weights are shared by all 8. No upsampled tensor, no concat
+// and no parity relayout is ever written, and the epilogue writes the fine
+// NDHWC positions of its parity directly (the TPU kernel's parity-block
+// layout and its interleave pass are not needed).
 //
 // What bounds it on the H100: arithmetic, as for conv3x3.cu (K >= 8*64 +
-// 27*32). The design removes the memory traffic the unfused level pays (an
-// upsampled copy 8x the size of x_deep, a concat, and a 27-tap conv over the
-// upsampled half where 8 taps suffice); the products run on the same
-// double-buffered wmma pipeline (igemm.cuh).
+// 27*32). The previous version ran on the wmma pipeline near 125 TFLOP/s.
+//
+// What this design does about it: the same wgmma/TMA mainloop as
+// conv3x3.cu, with a spatial M box (TD, TH, TW) over the coarse grid and
+// K steps of 64 channels in both halves.
+//   Up taps are plain 5-D boxes of x_deep at (c0, c+r3+j3-1, b+r2+j2-1,
+//   a+r1+j1-1, batch).
+//   Skip taps: with t = r+k-1 in {-1..2}, the fine index 2a+t equals
+//   2(a+s)+p for s = floor(t/2), p = t mod 2. The wrapper encodes 8 tensor
+//   maps over the skip, one per sub-parity p = (p1, p2, p3): coarse extents,
+//   doubled strides, base offset by p. Each skip tap is then one coarse box
+//   at (c0, c+s3, b+s2, a+s1, batch) of map p, and out of range is again
+//   TMA's zero fill. Chosen over TMA elementStrides of 2 (the odd
+//   sub-parities would still need maps of their own, offset by p) and over
+//   cp.async gathers (which bring back per-thread addresses and
+//   predicates): all of A and B reach shared memory through TMA.
 #include "igemm.cuh"
 
 namespace fetal {
 
-__global__ void __launch_bounds__(kThreads)
-    dec0_kernel(const bf16* __restrict__ xd, const bf16* __restrict__ skip,
-                const bf16* __restrict__ wup, const bf16* __restrict__ wskip,
-                const float* __restrict__ bias, bf16* __restrict__ y, int B, int dc, int hc,
-                int wc, int Cu, int Cs, int Co, int act, float slope) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  const int parity = blockIdx.z;
-  const int r1 = (parity >> 2) & 1, r2 = (parity >> 1) & 1, r3 = parity & 1;
-  const int Df = 2 * dc, Hf = 2 * hc, Wf = 2 * wc;
-  const long long Mc = static_cast<long long>(B) * dc * hc * wc;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
+struct Dec0Maps {
+  CUtensorMap xd;       // (C_up, wc, hc, dc, B), box (64, TW, TH, TD, 1)
+  CUtensorMap wup;      // (C_up, 8, C_out, 8 parities), box (64, 1, BN, 1)
+  CUtensorMap wskip;    // (C_skip, 27, C_out), box (64, 1, BN)
+  CUtensorMap skip[8];  // sub-parity p1*4+p2*2+p3: (C_skip, wc, hc, dc, B)
+};
 
-  const int q = tid & 3;
-  int rb[2], ra[2], rbb[2], rc[2];
-  bool rok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long m = m0 + (tid >> 2) + i * 64;
-    rok[i] = m < Mc;
-    const long long mm = rok[i] ? m : 0;
-    rc[i] = static_cast<int>(mm % wc);
-    long long t = mm / wc;
-    rbb[i] = static_cast<int>(t % hc);
-    t /= hc;
-    ra[i] = static_cast<int>(t % dc);
-    rb[i] = static_cast<int>(t / dc);
-  }
+constexpr int kKB = 64;  // channels per K step, both halves
 
-  const int cu_chunks = (Cu + kBK - 1) / kBK;
-  const int cs_chunks = (Cs + kBK - 1) / kBK;
+// Field order = ops/dec0.py::Dec0Plan.geom.
+struct Dec0Geom {
+  int B, dc, hc, wc, Co, cu_chunks, cs_chunks;
+  TileGrid grid;
+};
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    dec0_kernel(const __grid_constant__ Dec0Maps maps, const Dec0Geom g,
+                const float* __restrict__ bias, bf16* __restrict__ y, int act, float slope) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int cu_chunks = g.cu_chunks, cs_chunks = g.cs_chunks;
   const int n_up = 8 * cu_chunks;
-  const int n_iters = n_up + 27 * cs_chunks;
-  const bf16* wup_r = wup + static_cast<long long>(parity) * 8 * Cu * Co;
 
-  auto load_stage = [&](int it, bf16* as, bf16* bs) {
+  // K steps: first (j, chunk) of the up half, j = j1*4 + j2*2 + j3, then
+  // (k, chunk) of the skip half, k = k1*9 + k2*3 + k3; t.parity = r1*4 + r2*2 + r3
+  auto issue = [=, &maps](const Tile& t, int it, uint32_t a_dst, uint32_t b_dst, uint32_t bar) {
+    const int r1 = (t.parity >> 2) & 1, r2 = (t.parity >> 1) & 1, r3 = t.parity & 1;
     if (it < n_up) {
       const int j = it / cu_chunks;
-      const int c0 = (it - j * cu_chunks) * kBK;
+      const int c0 = (it - j * cu_chunks) * kKB;
       const int j1 = (j >> 2) & 1, j2 = (j >> 1) & 1, j3 = j & 1;
-      const int ch = c0 + q * 8;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int sa = ra[i] + r1 + j1 - 1, sb = rbb[i] + r2 + j2 - 1, sc = rc[i] + r3 + j3 - 1;
-        const bool ok = rok[i] && ch < Cu && sa >= 0 && sa < dc && sb >= 0 && sb < hc &&
-                        sc >= 0 && sc < wc;
-        const bf16* src =
-            ok ? xd + (((static_cast<long long>(rb[i]) * dc + sa) * hc + sb) * wc + sc) * Cu + ch
-               : xd;
-        cp_async16(as + ((tid >> 2) + i * 64) * kALd + q * 8, src, ok);
-      }
-      load_b_tile(bs, wup_r + static_cast<long long>(j * Cu + c0) * Co, min(kBK, Cu - c0), n0,
-                  Co, wup);
+      tma_load_5d(a_dst, &maps.xd, bar, c0, t.w0 + r3 + j3 - 1, t.h0 + r2 + j2 - 1,
+                  t.d0 + r1 + j1 - 1, t.b);
+      tma_load_4d(b_dst, &maps.wup, bar, c0, j, t.n0, t.parity);
     } else {
-      const int s = it - n_up;
-      const int k = s / cs_chunks;
-      const int c0 = (s - k * cs_chunks) * kBK;
-      const int k1 = k / 9, k2 = (k / 3) % 3, k3 = k % 3;
-      const int ch = c0 + q * 8;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int fd = 2 * ra[i] + r1 + k1 - 1, fh = 2 * rbb[i] + r2 + k2 - 1,
-                  fw = 2 * rc[i] + r3 + k3 - 1;
-        const bool ok = rok[i] && ch < Cs && fd >= 0 && fd < Df && fh >= 0 && fh < Hf &&
-                        fw >= 0 && fw < Wf;
-        const bf16* src =
-            ok ? skip + (((static_cast<long long>(rb[i]) * Df + fd) * Hf + fh) * Wf + fw) * Cs + ch
-               : skip;
-        cp_async16(as + ((tid >> 2) + i * 64) * kALd + q * 8, src, ok);
-      }
-      load_b_tile(bs, wskip + static_cast<long long>(k * Cs + c0) * Co, min(kBK, Cs - c0), n0,
-                  Co, wskip);
+      const int k = (it - n_up) / cs_chunks;
+      const int c0 = (it - n_up - k * cs_chunks) * kKB;
+      const int t1 = r1 + k / 9 - 1, t2 = r2 + (k / 3) % 3 - 1, t3 = r3 + k % 3 - 1;
+      const int s1 = (t1 + 2) / 2 - 1, s2 = (t2 + 2) / 2 - 1, s3 = (t3 + 2) / 2 - 1;
+      const int p = (t1 - 2 * s1) * 4 + (t2 - 2 * s2) * 2 + (t3 - 2 * s3);
+      tma_load_5d(a_dst, &maps.skip[p], bar, c0, t.w0 + s3, t.h0 + s2, t.d0 + s1, t.b);
+      tma_load_3d(b_dst, &maps.wskip, bar, c0, k, t.n0);
     }
   };
-
-  FragC acc[2][2];
-  main_loop(smem, n_iters, load_stage, acc, wm, wn);
-  epilogue(smem, acc, wm, wn, bias, y, n0, Co, act, slope, [&](int r) -> long long {
-    const long long m = m0 + r;
-    if (m >= Mc) return -1;
-    const int c = static_cast<int>(m % wc);
-    long long t = m / wc;
-    const int bb = static_cast<int>(t % hc);
-    t /= hc;
-    const int a = static_cast<int>(t % dc);
-    const long long b = t / dc;
-    const long long fine = ((b * Df + 2 * a + r1) * Hf + 2 * bb + r2) * Wf + 2 * c + r3;
-    return fine * Co;
-  });
+  auto row_offset = [=](const Tile& t, int r) -> long long {
+    const TileGrid& q = g.grid;
+    const int a = t.d0 + r / (q.TH * q.TW), bb = t.h0 + (r / q.TW) % q.TH, c = t.w0 + r % q.TW;
+    if (a >= g.dc || bb >= g.hc || c >= g.wc) return -1;
+    const int r1 = (t.parity >> 2) & 1, r2 = (t.parity >> 1) & 1, r3 = t.parity & 1;
+    const long long fine =
+        ((static_cast<long long>(t.b) * 2 * g.dc + 2 * a + r1) * 2 * g.hc + 2 * bb + r2) * 2 *
+            g.wc +
+        2 * c + r3;
+    return fine * g.Co;
+  };
+  igemm<BN, kKB>(smem, g.grid, 8 * g.grid.m_tiles * g.grid.n_tiles, n_up + 27 * cs_chunks, issue,
+            bias, y, g.Co, act, slope, row_offset);
 }
 
 }  // namespace fetal
 
-// xd: (B, dc, hc, wc, Cu) bf16; skip: (B, 2dc, 2hc, 2wc, Cs) bf16;
-// wup: (8, 8*Cu, Co) bf16, the pre-summed up weights per output parity;
-// wskip: (27*Cs, Co) bf16; bias: (Co,) fp32; y: (B, 2dc, 2hc, 2wc, Co) bf16.
-// All contiguous. Launches on `stream`; returns cudaGetLastError().
-extern "C" int fetal_dec0_bf16(const void* xd, const void* skip, const void* wup,
-                               const void* wskip, const void* bias, void* y, int B, int dc,
-                               int hc, int wc, int Cu, int Cs, int Co, int act, float slope,
+// specs: 11 tensor-map specs (x_deep, up weights (8, C_out, 8, C_up), skip
+// weights (C_out, 27, C_skip), then the 8 skip sub-parity views) of
+// kMapSpecLen integers; geom: the 15 Dec0Geom integers; bias (C_out,) fp32;
+// y (B, 2dc, 2hc, 2wc, C_out) bf16 contiguous. Launches `blocks`
+// persistent blocks of N tile `bn` on `stream`; returns 0, a cudaError_t,
+// or an encode error.
+extern "C" int fetal_dec0_bf16(const long long* specs, const int* geom, const void* bias,
+                               void* y, int bn, int blocks, int act, float slope,
                                void* stream) {
   using namespace fetal;
-  const long long Mc = static_cast<long long>(B) * dc * hc * wc;
-  const dim3 grid(static_cast<unsigned>((Mc + kBM - 1) / kBM), (Co + kBN - 1) / kBN, 8);
-  dec0_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(xd), static_cast<const bf16*>(skip), static_cast<const bf16*>(wup),
-      static_cast<const bf16*>(wskip), static_cast<const float*>(bias), static_cast<bf16*>(y), B,
-      dc, hc, wc, Cu, Cs, Co, act, slope);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap m[11];
+  if (const int err = encode_maps(m, specs, 11)) return err;
+  Dec0Maps maps;
+  maps.xd = m[0];
+  maps.wup = m[1];
+  maps.wskip = m[2];
+  for (int p = 0; p < 8; ++p) maps.skip[p] = m[3 + p];
+  const Dec0Geom g{geom[0],
+                   geom[1],
+                   geom[2],
+                   geom[3],
+                   geom[4],
+                   geom[5],
+                   geom[6],
+                   {geom[7], geom[8], geom[9], geom[10], geom[11], geom[12], geom[13], geom[14]}};
+  const float* b = static_cast<const float*>(bias);
+  bf16* out = static_cast<bf16*>(y);
+  if (bn == 128)
+    return launch(dec0_kernel<128>, dim3(blocks), Smem<128, kKB>::kBytes, stream, maps, g, b,
+                  out, act, slope);
+  if (bn == 64)
+    return launch(dec0_kernel<64>, dim3(blocks), Smem<64, kKB>::kBytes, stream, maps, g, b, out,
+                  act, slope);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,6 +19,7 @@ from torch import nn
 from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import (
     apply_activation, conv3d_ndhwc, conv3x3, conv3x3_available,
     conv3x3_flat)
+from fetal_mri_segmentation_tpu_torch.ops.cuda_lib import cached
 from fetal_mri_segmentation_tpu_torch.ops.dec0 import (
     dec0_available, up_concat_conv3x3, up_concat_conv3x3_kernel)
 
@@ -39,7 +40,10 @@ class ConvBlock(nn.Module):
     ``_pallas_op`` splits them); ``use_kernel_dec0`` routes the fused
     decoder input to the fused-decoder kernel. The activation is fused into
     both kernels. On CPU tensors the same routes run the kernels' plain
-    versions.
+    versions. Outside autograd, both routes take the weight in the compute
+    dtype once per version of the parameter, already K-major (the conv
+    kernel's B operand) and kept as one tensor, so the fused-decoder
+    kernel's own prepared weights are made once too.
     """
 
     def __init__(self, in_features: int, features: int, *,
@@ -58,7 +62,15 @@ class ConvBlock(nn.Module):
                               device=device)
 
     def _kernel_dhwio(self) -> torch.Tensor:
-        return self.conv.weight.to(self.dtype).permute(2, 3, 4, 1, 0)
+        """The weight as DHWIO in the compute dtype: a view of a (C_out,
+        3, 3, 3, C_in) tensor made once per version of the parameter (and
+        afresh while autograd records, so gradients reach the parameter)."""
+        weight = self.conv.weight
+        if torch.is_grad_enabled() and weight.requires_grad:
+            return weight.to(self.dtype).permute(2, 3, 4, 1, 0)
+        return cached(weight, ("dhwio", self.dtype), lambda w: w.detach().to(
+            self.dtype).permute(0, 2, 3, 4, 1).contiguous().permute(
+                1, 2, 3, 4, 0))
 
     def forward(self, x) -> torch.Tensor:
         if isinstance(x, (tuple, list)):
@@ -66,8 +78,7 @@ class ConvBlock(nn.Module):
         ci = x.shape[-1]
         if self.use_kernel_conv and conv3x3_available(ci, self.features):
             op = conv3x3 if ci % 128 == 0 else conv3x3_flat
-            return op(x.to(self.dtype).contiguous(),
-                      self._kernel_dhwio().contiguous(),
+            return op(x.to(self.dtype).contiguous(), self._kernel_dhwio(),
                       self.conv.bias.float(), self.activation,
                       self.negative_slope)
         y = conv3d_ndhwc(x.to(self.dtype), self.conv.weight.to(self.dtype),

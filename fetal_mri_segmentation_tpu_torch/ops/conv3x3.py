@@ -14,6 +14,13 @@ activation in relu / leaky_relu / none. One CUDA kernel
 was a lane-rotation device and is not carried over, so ``conv3x3_chain`` is
 successive NDHWC launches with no relayout between them.
 
+The kernel reads the weight K-major, as (C_out, 27, C_in). A DHWIO ``w``
+that is a view of such a tensor (``kmajor_weight(w).permute(1, 2, 3, 4, 0)``
+has that form; ``models/layers.py::ConvBlock`` passes one) is read in place;
+any other ``w`` is transposed once per version of the tensor and the copy
+kept with it (``cuda_lib.cached``). :func:`tile_plan` gives the kernel's
+tile box, K step, N tile, tile counts and TMA maps.
+
 On a CPU tensor each entry point runs :func:`conv3x3_reference` (``F.conv3d``
 plus bias and activation). On a CUDA tensor it launches the kernel (bf16
 operands, fp32 bias) or raises. Each entry point counts its launches in its
@@ -22,12 +29,14 @@ operands, fp32 bias) or raises. Each entry point counts its launches in its
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
+from fetal_mri_segmentation_tpu_torch.ops import cuda_lib, tiling
 
 
 def conv3x3_available(ci: int, co: int) -> bool:
@@ -84,17 +93,87 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor,
                          "fails conv3x3_available (C_in >= 8, channels % 8)")
 
 
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How ``conv3x3_kernel`` covers one call (``csrc/conv3x3.cu``)."""
+
+    shape: tuple[int, int, int, int]      # B, D, H, W
+    co: int
+    kb: int                               # channels per K step (64 or 32)
+    chunks: int                           # K chunks per tap
+    box: tuple[int, int, int]             # TD, TH, TW: the M tile's voxels
+    tiles: tuple[int, int, int]           # boxes along D, H, W
+    m_tiles: int                          # B * boxes
+    n_tiles: int
+    bn: int                               # N tile
+    maps: tuple[tiling.TensorMap, ...]    # x, then the K-major weight "w"
+
+    @property
+    def geom(self) -> tuple[int, ...]:
+        """The kernel's ConvGeom, field for field."""
+        return (*self.shape, self.co, self.chunks, *self.box, *self.tiles,
+                self.m_tiles, self.n_tiles)
+
+    @property
+    def bm(self) -> int:
+        return self.box[0] * self.box[1] * self.box[2]
+
+    @property
+    def total_tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+@functools.cache
+def tile_plan(B: int, D: int, H: int, W: int, ci: int, co: int) -> ConvPlan:
+    bn, kb = tiling.choose_bn(co), tiling.choose_kb(ci)
+    box = tiling.tile_box(D, H, W, tiling.tile_voxels(bn))
+    tiles = tiling.tile_counts((D, H, W), box)
+    maps = (tiling.ndhwc_map("x", (B, D, H, W, ci), box, kb=kb),
+            tiling.weight_map("w", (co, 27, ci), bn, kb))
+    return ConvPlan((B, D, H, W), co, kb, tiling.ceil_div(ci, kb), box,
+                    tiles, B * tiles[0] * tiles[1] * tiles[2],
+                    tiling.ceil_div(co, bn), bn, maps)
+
+
+def load_coords(plan: ConvPlan, it: int, b: int, d0: int, h0: int, w0: int,
+                n0: int):
+    """The TMA coordinates of K step ``it`` of the block at (b, d0, h0, w0),
+    N offset n0: ((x map coords), (w map coords)), innermost first. Mirror
+    of ``conv3x3_kernel``'s ``issue``."""
+    tap, chunk = divmod(it, plan.chunks)
+    c0 = chunk * plan.kb
+    kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+    return ((c0, w0 + kw - 1, h0 + kh - 1, d0 + kd - 1, b),
+            (c0, tap, n0))
+
+
+def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
+    """DHWIO (3, 3, 3, C_in, C_out) -> the kernel's B operand
+    (C_out, 3, 3, 3, C_in), contiguous; a view of one is returned as is."""
+    wk = w.permute(4, 0, 1, 2, 3)
+    if wk.is_contiguous():
+        return wk
+    return cuda_lib.cached(w, "kmajor", lambda t: t.permute(
+        4, 0, 1, 2, 3).contiguous())
+
+
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             activation: str, negative_slope: float) -> torch.Tensor:
-    cuda_lib.require_cuda_bf16(name, x=x, w=w, bias=bias)
+    cuda_lib.require_cuda_bf16(name, x=x, bias=bias)
+    wk = kmajor_weight(w)
+    cuda_lib.require_cuda_bf16(name, x=x, w=wk, bias=bias)
     B, D, H, W, ci = x.shape
-    co = w.shape[4]
+    co = wk.shape[0]
+    plan = tile_plan(B, D, H, W, ci, co)
     y = torch.empty((B, D, H, W, co), dtype=torch.bfloat16, device=x.device)
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):
         err = lib.fetal_conv3x3_bf16(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            B, D, H, W, ci, co, cuda_lib.ACTIVATIONS[activation],
+            tiling.pack_specs(plan.maps, {"x": x, "w": wk}),
+            tiling.pack_ints(plan.geom), bias.data_ptr(), y.data_ptr(),
+            plan.bn, plan.kb,
+            tiling.grid_blocks(plan.total_tiles, x.device),
+            cuda_lib.ACTIVATIONS[activation],
             float(negative_slope), torch.cuda.current_stream().cuda_stream)
     cuda_lib.check_launch(name, err)
     return y

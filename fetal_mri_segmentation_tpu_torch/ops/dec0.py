@@ -14,16 +14,21 @@ x_deep with pre-summed weights, interleaved, plus a SAME conv of the skip.
 The CUDA kernel (``csrc/dec0.cu``) computes the same sums as eight parity
 GEMMs with K = 8*C_up + 27*C_skip, reading x_deep and skip in place and
 writing the fine NDHWC output; :func:`build_dec0_weights` is the twin of
-``pallas_dec0.py::_build_weights`` in the kernel's row-major layout.
+``pallas_dec0.py::_build_weights`` in row-major GEMM layout, and
+:func:`kernel_weights` turns it into the kernel's K-major B operands, once
+per version of the ``kernel`` tensor (``cuda_lib.cached``). :func:`tile_plan`
+gives the tile box, N tile, tile counts and the 11 TMA maps (x_deep, the
+two weights and the skip's 8 sub-parity views).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
-from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
+from fetal_mri_segmentation_tpu_torch.ops import cuda_lib, tiling
 from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import (
     apply_activation, conv3d_ndhwc)
 
@@ -119,6 +124,96 @@ def dec0_available(x_shape, skip_shape, up_ch: int, skip_ch: int,
     return tuple(skip_shape[1:4]) == tuple(2 * int(s) for s in x_shape[1:4])
 
 
+def kernel_weights(kernel: torch.Tensor, up_ch: int):
+    """The kernel's B operands, K-major bf16: ``w_up`` (8 parities, C_out,
+    8 taps, C_up) and ``w_skip`` (C_out, 27 taps, C_skip), from
+    :func:`build_dec0_weights`."""
+    w_up, w_skip = build_dec0_weights(kernel, up_ch, torch.bfloat16)
+    co = w_up.shape[-1]
+    return (w_up.reshape(8, 8, up_ch, co).permute(0, 3, 1, 2).contiguous(),
+            w_skip.reshape(27, -1, co).permute(2, 0, 1).contiguous())
+
+
+@dataclasses.dataclass(frozen=True)
+class Dec0Plan:
+    """How ``dec0_kernel`` covers one call (``csrc/dec0.cu``): every
+    (M tile, N tile) once per output parity."""
+
+    shape: tuple[int, int, int, int]      # B, dc, hc, wc (coarse)
+    co: int
+    cu_chunks: int
+    cs_chunks: int
+    box: tuple[int, int, int]             # TD, TH, TW over the coarse grid
+    tiles: tuple[int, int, int]
+    m_tiles: int
+    n_tiles: int
+    bn: int
+    maps: tuple[tiling.TensorMap, ...]    # xd, w_up, w_skip, skip p=0..7
+
+    @property
+    def geom(self) -> tuple[int, ...]:
+        """The kernel's Dec0Geom, field for field."""
+        return (*self.shape, self.co, self.cu_chunks, self.cs_chunks,
+                *self.box, *self.tiles, self.m_tiles, self.n_tiles)
+
+    @property
+    def bm(self) -> int:
+        return self.box[0] * self.box[1] * self.box[2]
+
+    @property
+    def total_tiles(self) -> int:
+        return 8 * self.m_tiles * self.n_tiles
+
+    @property
+    def n_iters(self) -> int:
+        return 8 * self.cu_chunks + 27 * self.cs_chunks
+
+
+@functools.cache
+def tile_plan(B: int, dc: int, hc: int, wc: int, cu: int, cs: int,
+              co: int) -> Dec0Plan:
+    bn = tiling.choose_bn(co)
+    box = tiling.tile_box(dc, hc, wc, tiling.tile_voxels(bn))
+    tiles = tiling.tile_counts((dc, hc, wc), box)
+    fine = (B, 2 * dc, 2 * hc, 2 * wc, cs)
+    skip_maps = tuple(
+        tiling.ndhwc_map("skip", fine, box, step=2, origin=(p1, p2, p3),
+                         extent=(dc, hc, wc))
+        for p1 in (0, 1) for p2 in (0, 1) for p3 in (0, 1))
+    maps = (tiling.ndhwc_map("xd", (B, dc, hc, wc, cu), box),
+            tiling.weight_map("w_up", (8, co, 8, cu), bn),
+            tiling.weight_map("w_skip", (co, 27, cs), bn)) + skip_maps
+    return Dec0Plan((B, dc, hc, wc), co, tiling.ceil_div(cu, tiling.BK),
+                    tiling.ceil_div(cs, tiling.BK), box, tiles,
+                    B * tiles[0] * tiles[1] * tiles[2],
+                    tiling.ceil_div(co, bn), bn, maps)
+
+
+def load_coords(plan: Dec0Plan, it: int, parity: int, b: int, d0: int,
+                h0: int, w0: int, n0: int):
+    """K step ``it`` of the block at coarse (b, d0, h0, w0), output parity
+    ``parity`` (r1*4 + r2*2 + r3), N offset n0: ((A map index, coords),
+    (B map index, coords)), indices into ``plan.maps``, coordinates
+    innermost first. Mirror of ``dec0_kernel``'s ``issue``."""
+    r1, r2, r3 = parity >> 2 & 1, parity >> 1 & 1, parity & 1
+    n_up = 8 * plan.cu_chunks
+    if it < n_up:
+        j, chunk = divmod(it, plan.cu_chunks)
+        j1, j2, j3 = j >> 2 & 1, j >> 1 & 1, j & 1
+        c0 = chunk * tiling.BK
+        return ((0, (c0, w0 + r3 + j3 - 1, h0 + r2 + j2 - 1,
+                     d0 + r1 + j1 - 1, b)),
+                (1, (c0, j, n0, parity)))
+    k, chunk = divmod(it - n_up, plan.cs_chunks)
+    c0 = chunk * tiling.BK
+    t = (r1 + k // 9 - 1, r2 + k // 3 % 3 - 1, r3 + k % 3 - 1)
+    s = tuple((ti + 2) // 2 - 1 for ti in t)
+    p = [ti - 2 * si for ti, si in zip(t, s)]
+    return ((3 + p[0] * 4 + p[1] * 2 + p[2],
+             (c0, w0 + s[2], h0 + s[1], d0 + s[0], b)),
+            (2, (c0, k, n0)))
+
+
 def up_concat_conv3x3_kernel(x_deep: torch.Tensor, skip: torch.Tensor,
                              kernel: torch.Tensor, bias: torch.Tensor,
                              activation: str = "none",
@@ -139,21 +234,26 @@ def up_concat_conv3x3_kernel(x_deep: torch.Tensor, skip: torch.Tensor,
     if x_deep.device.type == "cpu":
         return up_concat_conv3x3_reference(x_deep, skip, kernel, bias,
                                            activation, negative_slope)
-    w_up, w_skip = build_dec0_weights(kernel, up_ch, torch.bfloat16)
-    cuda_lib.require_cuda_bf16("up_concat_conv3x3_kernel", x_deep=x_deep,
-                               skip=skip, w_up=w_up, w_skip=w_skip, bias=bias)
+    name = "up_concat_conv3x3_kernel"
+    cuda_lib.require_cuda_bf16(name, x_deep=x_deep, skip=skip, bias=bias)
+    w_up, w_skip = cuda_lib.cached(
+        kernel, ("dec0", up_ch), lambda k: kernel_weights(k, up_ch))
+    cuda_lib.require_cuda_bf16(name, x_deep=x_deep, skip=skip, w_up=w_up,
+                               w_skip=w_skip, bias=bias)
     B, dc, hc, wc = x_deep.shape[:4]
+    plan = tile_plan(B, dc, hc, wc, up_ch, skip_ch, co)
     y = torch.empty((B, 2 * dc, 2 * hc, 2 * wc, co), dtype=torch.bfloat16,
                     device=x_deep.device)
+    operands = {"xd": x_deep, "skip": skip, "w_up": w_up, "w_skip": w_skip}
     lib = cuda_lib.library()
     with torch.cuda.device(x_deep.device):
         err = lib.fetal_dec0_bf16(
-            x_deep.data_ptr(), skip.data_ptr(), w_up.data_ptr(),
-            w_skip.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            B, dc, hc, wc, up_ch, skip_ch, co,
-            cuda_lib.ACTIVATIONS[activation], float(negative_slope),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check_launch("up_concat_conv3x3_kernel", err)
+            tiling.pack_specs(plan.maps, operands),
+            tiling.pack_ints(plan.geom), bias.data_ptr(), y.data_ptr(),
+            plan.bn, tiling.grid_blocks(plan.total_tiles, x_deep.device),
+            cuda_lib.ACTIVATIONS[activation],
+            float(negative_slope), torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check_launch(name, err)
     up_concat_conv3x3_kernel.launches += 1
     return y
 
