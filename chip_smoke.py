@@ -13,14 +13,24 @@ Phases, one line each (or one line per checked shape):
    ``conv3x3_kernel`` and ``dec0_kernel`` issues ``HGMMA`` (wgmma);
 3. kernels: each kernel against its plain PyTorch version at every shape
    the serving slice gives it (depth-4, 32-filter U-Net on a batch of 8 64^3
-   patches), plus non-cubic and ragged-tile shapes that also cover the
-   other activations, with the tolerance, both times, the kernel's TFLOP/s
-   and the time of its one-off weight preparation;
+   patches), the same layers at the training path's batches (6 and 12),
+   plus non-cubic and ragged-tile shapes that also cover the other
+   activations, with the tolerance, both times, the kernel's TFLOP/s and
+   the time of its one-off weight preparation;
 4. slice: three synthetic ellipsoid NIfTI cases at a scanner-like raw shape
    through ``fetal_mri_segmentation_tpu_torch.predict.main`` with
    ``configs/fetal_unet.json``, both kernel switches on and random weights
    from a seed; the kernels' launch counts over that run; the same
-   predictor with the switches off as the reference.
+   predictor with the switches off as the reference;
+5. train: the same config at full width (batch 6 of 64^3 patches) through
+   the port's train step: one step's gradients with the kernels on against
+   the switches off (every parameter's relative L2 error and the loss) and
+   that step's launch counts, the step's milliseconds, its forward and
+   backward parts and its peak memory with the kernels on and off (and
+   with TF32 off for the kernel route's fp32 backward convolutions), then
+   ``train_model`` for two epochs on the three synthetic cases
+   preprocessed into an in-memory data file, with augmentation, and the
+   kernels' launch counts over that run: one forward's worth per step.
 
 Then one JSON line describing the kernels, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
@@ -51,6 +61,17 @@ REL_TOL, ABS_TOL = 1e-2, 1e-2
 # that compounds through the net; the sigmoid's slope is at most 1/4.
 PROB_TOL = 2e-2
 
+# Train-phase bounds, kernels on against off from the same weights and
+# batch. The two forwards round each bf16 conv output at different places
+# (PROB_TOL above), and the backward differs by design: the kernel route's
+# VJP recomputes each pre-activation in fp32 where cuDNN's bf16 autograd
+# keeps bf16 activations and gradients, so each layer's gradient carries a
+# few bf16 roundings (2^-9 each) of difference; 5e-2 relative L2 leaves
+# room for their growth through 15 layers and still fails a missing or
+# misrouted gradient (relative error 1). The loss is a ratio of sums over
+# 1.5M voxels, where those roundings average out.
+GRAD_REL_TOL, LOSS_TOL = 5e-2, 1e-3
+
 B = 8  # patches per forward: the entry point's --patch-batch-size
 # (entry point, layer, batch, D, H, W, C_in, C_out): every kernel conv of
 # the depth-4/32 U-Net on 64^3 patches, then non-cubic shapes and shapes with
@@ -80,6 +101,25 @@ DEC_SHAPES = [
     ("ragged", 3, 5, 3, 7, 24, 40, 40),
 ]
 SLICE_LAYERS = {"enc", "dec"}
+# kernel launches per forward of the U-Net: the slice layers above list
+# each of its kernel layers once (6 conv3x3, 4 conv3x3_flat, 3 fused
+# decoders); the kernel routes' backward launches none
+PER_FORWARD = {entry: sum(e == entry and layer[:3] in SLICE_LAYERS
+                          for e, layer, *_ in CONV_SHAPES)
+               for entry in ("conv3x3", "conv3x3_flat")}
+PER_FORWARD["up_concat_conv3x3_kernel"] = sum(
+    layer[:3] in SLICE_LAYERS for layer, *_ in DEC_SHAPES)
+# The training path's batches (configs/fetal_unet.json): the train step's
+# batch_size and the eval step's validation_batch_size. They change the
+# persistent kernels' tile counts, so every slice layer is checked at both
+# too; labelled "train ...", they stay out of the serving sums.
+TRAIN_BATCHES = (6, 12)
+CONV_SHAPES += [(entry, f"train {layer}", tb, *rest)
+                for entry, layer, _, *rest in CONV_SHAPES
+                if layer[:3] in SLICE_LAYERS for tb in TRAIN_BATCHES]
+DEC_SHAPES += [(f"train {layer}", tb, *rest)
+               for layer, _, *rest in DEC_SHAPES
+               if layer[:3] in SLICE_LAYERS for tb in TRAIN_BATCHES]
 # the slice's blocks use relu; the extra shapes cover the other activations
 ACTIVATION = {"non-cubic": "none", "ragged": "leaky_relu",
               "ragged-K": "leaky_relu", "ragged-N": "none"}
@@ -332,6 +372,227 @@ def slice_phase(torch, work: Path) -> dict:
     return launches
 
 
+def train_batch(config, seed: int = 0):
+    """A channels-first batch of the config's patches: an ellipsoid truth
+    per example and a noisy image, float32 numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = tuple(config.patch_shape)
+    grids = np.mgrid[: shape[0], : shape[1], : shape[2]].astype(np.float32)
+    x, y = [], []
+    for _ in range(config.batch_size):
+        center = np.array(shape) / 2 + rng.uniform(-12, 12, 3)
+        radii = np.array(shape) * rng.uniform(0.2, 0.35, 3)
+        truth = sum(((g - c) / r) ** 2
+                    for g, c, r in zip(grids, center, radii)) < 1
+        y.append(truth[None].astype(np.float32))
+        x.append((y[-1] * 2 + rng.normal(0, 0.3, y[-1].shape)).astype(
+            np.float32))
+    return np.stack(x), np.stack(y)
+
+
+def train_phase(torch, work: Path) -> dict:
+    import dataclasses
+    import csv
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.data.memory import InMemoryDataFile
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        get_training_and_validation_generators)
+    from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
+        CheckpointIO)
+    from fetal_mri_segmentation_tpu_torch.training.loop import train_model
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        _forward, get_loss_fn, make_train_step)
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    # PyTorch's defaults: cuDNN may use TF32 for fp32 convolutions (the
+    # kernel route's fp32 backward), matmuls stay fp32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = Config.load(str(ROOT / "configs" / "fetal_unet.json"))
+    config.use_pallas_conv = True
+    config.use_pallas_dec0 = True
+    config_off = dataclasses.replace(config, use_pallas_conv=False,
+                                     use_pallas_dec0=False)
+    weights = from_flax(init_flax_like(config, seed=0))
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+
+    def zero_counts():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def fresh(cfg):
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(weights)
+        return model, create_train_state(model, cfg)
+
+    x_np, y_np = train_batch(config)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+
+    # gradient check: one step from the same weights and batch, no
+    # augmentation, kernels on against off
+    grads, losses = {}, {}
+    for name, cfg in (("on", config), ("off", config_off)):
+        model, state = fresh(dataclasses.replace(cfg, augment=False))
+        step = make_train_step(model, dataclasses.replace(cfg, augment=False))
+        zero_counts()
+        metrics = step(state, x, y)
+        torch.cuda.synchronize()
+        step_launches = counts()
+        want = PER_FORWARD if name == "on" else dict.fromkeys(PER_FORWARD, 0)
+        print(f"train step {name}: launches {step_launches}", flush=True)
+        if step_launches != want:
+            raise AssertionError(f"one train step with the kernels {name} "
+                                 f"launched {step_launches}, not {want}")
+        losses[name] = float(metrics["loss"])
+        grads[name] = {n: p.grad.float().clone()
+                       for n, p in model.named_parameters()}
+        del model, state, step
+    worst, zero = ("", 0.0), []
+    for n, g_off in grads["off"].items():
+        g_on = grads["on"][n]
+        if not bool((g_on != 0).any()):
+            zero.append(n)
+        rel = ((g_on - g_off).norm() / g_off.norm()).item()
+        if rel > worst[1] or rel != rel:
+            worst = (n, rel)
+    print(f"train grad check: {len(grads['on'])} parameter tensors; largest "
+          f"relative L2 error {worst[1]:.6g} ({worst[0]}) <= tol "
+          f"{GRAD_REL_TOL}; loss {losses['on']:.6g} with kernels, "
+          f"{losses['off']:.6g} without (|diff| "
+          f"{abs(losses['on'] - losses['off']):.6g} <= tol {LOSS_TOL}); "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    if zero:
+        raise AssertionError(f"zero gradient with the kernels on: {zero}")
+    if not worst[1] <= GRAD_REL_TOL:
+        raise AssertionError(f"gradient of {worst[0]}: relative error "
+                             f"{worst[1]} > {GRAD_REL_TOL}")
+    if not abs(losses["on"] - losses["off"]) <= LOSS_TOL:
+        raise AssertionError(f"loss {losses['on']} against {losses['off']}")
+    del grads
+
+    # time and memory of the full step (augmentation on), and its parts
+    def measure(label, cfg):
+        model, state = fresh(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = make_train_step(model, cfg, generator=gen)
+        loss_fn = get_loss_fn(cfg)
+        step(state, x, y)  # makes the gradients and Adam's moments
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step_ms = time_ms(torch, lambda: step(state, x, y))
+        peak = torch.cuda.max_memory_allocated()
+
+        def forward():
+            return loss_fn(y, _forward(model, x))
+
+        fwd_ms = time_ms(torch, forward)
+        fwd_bwd_ms = time_ms(torch, lambda: forward().backward())
+        print(f"train step {label}: {step_ms:.6g} ms per step of "
+              f"{cfg.batch_size}x{tuple(cfg.patch_shape)} (augmentation, "
+              f"forward, loss, backward, Adam); forward + loss "
+              f"{fwd_ms:.6g} ms, + backward {fwd_bwd_ms:.6g} ms (backward "
+              f"{(fwd_bwd_ms - fwd_ms) / step_ms:.4f} of the step); peak "
+              f"memory {peak / 2**30:.6g} GiB ({(peak - base) / 2**30:.6g} "
+              f"GiB above the {base / 2**30:.6g} GiB of weights, gradients "
+              f"and optimizer state); "
+              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}",
+              flush=True)
+        del model, state
+        torch.cuda.empty_cache()
+        return step_ms
+
+    on_ms = measure("kernels on", config)
+    off_ms = measure("kernels off", config_off)
+    torch.backends.cudnn.allow_tf32 = False
+    on_fp32_ms = measure("kernels on, fp32 backward without TF32", config)
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"train step: kernels on {on_ms:.6g} ms, off {off_ms:.6g} ms, on "
+          f"without TF32 {on_fp32_ms:.6g} ms", flush=True)
+
+    # the loop: two epochs on the synthetic cases, preprocessed into an
+    # in-memory data file, with augmentation
+    loop_cfg = dataclasses.replace(
+        config, n_epochs=2, overwrite=False,
+        model_file=str(work / "model.pt"),
+        training_file=str(work / "training_ids.pkl"),
+        validation_file=str(work / "validation_ids.pkl"),
+        training_log=str(work / "training.log"))
+    t0 = time.perf_counter()
+    data_file = InMemoryDataFile.from_cases(write_cases(work / "cases"),
+                                            loop_cfg)
+    prep_s = time.perf_counter() - t0
+    tg, n_t, vg, n_v = get_training_and_validation_generators(
+        data_file, batch_size=loop_cfg.batch_size, n_labels=1,
+        training_keys_file=loop_cfg.training_file,
+        validation_keys_file=loop_cfg.validation_file,
+        data_split=loop_cfg.validation_split, overwrite=True,
+        labels=loop_cfg.labels, patch_shape=loop_cfg.patch_shape,
+        validation_batch_size=loop_cfg.validation_batch_size,
+        validation_patch_overlap=loop_cfg.validation_patch_overlap,
+        training_patch_start_offset=loop_cfg.training_patch_start_offset,
+        skip_blank=loop_cfg.skip_blank, seed=0)
+    model, state = fresh(loop_cfg)
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train_model(model, state, loop_cfg, tg, vg, n_t, n_v, seed=0,
+                        verbose=False)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = counts()
+    # one forward per train and per validation step, in each epoch
+    want = {name: n * loop_cfg.n_epochs * (n_t + n_v)
+            for name, n in PER_FORWARD.items()}
+    print(f"train loop: launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"train_model launched {launches}, not {want}")
+    with open(loop_cfg.training_log) as f:
+        rows = list(csv.DictReader(f))
+    print("train loop: " + "; ".join(
+        f"epoch {r['epoch']} loss {float(r['loss']):.6g} val_loss "
+        f"{float(r['val_loss']):.6g} dice {float(r['dice_coefficient']):.6g}"
+        f" {float(r['patches_per_sec']):.6g} patches/s" for r in rows)
+        + f"; {n_t} + {n_v} steps per epoch, {loop_s:.4f} s for both "
+        f"epochs, preprocessing {prep_s:.4f} s", flush=True)
+    if [r["epoch"] for r in rows] != ["0", "1"]:
+        raise AssertionError(
+            f"training log epochs {[r['epoch'] for r in rows]}")
+    if not float(rows[1]["loss"]) < float(rows[0]["loss"]):
+        raise AssertionError("the training loss did not fall")
+    best = CheckpointIO(loop_cfg.model_file)
+    _, check = fresh(loop_cfg)
+    _, epoch, best_val, _ = best.restore(check)
+    if best_val != min(float(r["val_loss"]) for r in rows) or epoch not in (
+            1, 2):
+        raise AssertionError(f"best checkpoint: epoch {epoch}, {best_val}")
+    final = CheckpointIO(str(work / "final.pt"))
+    final.save(state, epoch=2, best_val=best_val)
+    _, reloaded = fresh(loop_cfg)
+    final.restore(reloaded)
+    for (n, a), b in zip(model.named_parameters(),
+                         reloaded.model.parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"reloaded {n} differs")
+    print(f"train checkpoint: best of epoch {epoch} restored, the final "
+          f"state reloaded into a fresh model with identical weights",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -370,10 +631,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         launches = slice_phase(torch, Path(work))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        train_launches = train_phase(torch, Path(work))
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
-                **stats[name]}
+                "train_launches": train_launches[name], **stats[name]}
                for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,18 @@ def check_supported(config: Config) -> None:
     ``fold_level0`` "auto", None and "off" all mean no fold: the JAX
     package folds only on a TPU (``models/layers.py::resolve_fold``), and
     the fold is a layout lever for the TPU's conv emitter with the same
-    math as the plain path. An explicit fold tuple raises."""
+    math as the plain path. An explicit fold tuple raises. More than one
+    device raises (the port runs on one). The augmentations the port lacks
+    are refused by ``training/train_step.py::make_train_step``, since a
+    serving config may carry them."""
+    if config.num_devices is not None and config.num_devices > 1:
+        raise NotImplementedError(
+            f"num_devices={config.num_devices}: the data-parallel mesh is "
+            "not ported yet (DDP, ROADMAP.md queue 1, item 10)")
+    if config.spatial_devices > 1:
+        raise NotImplementedError(
+            f"spatial_devices={config.spatial_devices}: depth-axis spatial "
+            "sharding is not ported yet (ROADMAP.md queue 1, item 11)")
     if config.model_name != "unet":
         raise NotImplementedError(
             f"model_name={config.model_name!r}: only the unet is ported "

@@ -40,10 +40,11 @@ class ConvBlock(nn.Module):
     ``_pallas_op`` splits them); ``use_kernel_dec0`` routes the fused
     decoder input to the fused-decoder kernel. The activation is fused into
     both kernels. On CPU tensors the same routes run the kernels' plain
-    versions. Outside autograd, both routes take the weight in the compute
-    dtype once per version of the parameter, already K-major (the conv
-    kernel's B operand) and kept as one tensor, so the fused-decoder
-    kernel's own prepared weights are made once too.
+    versions. Both routes are differentiable (the kernels' autograd
+    Functions in ``ops/``). Outside autograd, both routes take the weight
+    in the compute dtype once per version of the parameter, already
+    K-major (the conv kernel's B operand) and kept as one tensor, so the
+    fused-decoder kernel's own prepared weights are made once too.
     """
 
     def __init__(self, in_features: int, features: int, *,
@@ -63,14 +64,20 @@ class ConvBlock(nn.Module):
 
     def _kernel_dhwio(self) -> torch.Tensor:
         """The weight as DHWIO in the compute dtype: a view of a (C_out,
-        3, 3, 3, C_in) tensor made once per version of the parameter (and
-        afresh while autograd records, so gradients reach the parameter)."""
+        3, 3, 3, C_in) tensor, the conv kernel's K-major B operand. Made
+        once per version of the parameter; while autograd records, made
+        afresh from the parameter on every call, so the gradient reaches
+        ``conv.weight`` and no operand prepared from it (the fused
+        decoder's, kept on this tensor) outlives an optimizer step."""
+        def dhwio(w):
+            return w.to(self.dtype).permute(0, 2, 3, 4, 1).contiguous(
+                ).permute(1, 2, 3, 4, 0)
+
         weight = self.conv.weight
         if torch.is_grad_enabled() and weight.requires_grad:
-            return weight.to(self.dtype).permute(2, 3, 4, 1, 0)
-        return cached(weight, ("dhwio", self.dtype), lambda w: w.detach().to(
-            self.dtype).permute(0, 2, 3, 4, 1).contiguous().permute(
-                1, 2, 3, 4, 0))
+            return dhwio(weight)
+        return cached(weight, ("dhwio", self.dtype),
+                      lambda w: dhwio(w.detach()))
 
     def forward(self, x) -> torch.Tensor:
         if isinstance(x, (tuple, list)):

@@ -25,6 +25,12 @@ On a CPU tensor each entry point runs :func:`conv3x3_reference` (``F.conv3d``
 plus bias and activation). On a CUDA tensor it launches the kernel (bf16
 operands, fp32 bias) or raises. Each entry point counts its launches in its
 ``launches`` attribute; ``conv3x3_chain`` launches through ``conv3x3_flat``.
+
+Both entry points are differentiable on either device: the forward runs in
+a ``torch.autograd.Function`` (:class:`_FusedConv`) whose backward is
+:func:`conv3x3_vjp`, the port of the JAX custom VJP
+(``pallas_conv.py::_bwd``, shared by ``conv3x3_flat``): plain fp32 ops that
+recompute the pre-activation and never launch the kernel.
 """
 
 from __future__ import annotations
@@ -179,16 +185,60 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def conv3x3_vjp(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                g: torch.Tensor, activation: str, negative_slope: float,
+                needs=(True, True, True)):
+    """(dx, dw, db) of the fused conv for the output cotangent ``g``.
+
+    Port of ``pallas_conv.py::_bwd``: autograd of :func:`conv3x3_reference`
+    on fp32 copies of x, w and bias, so the pre-activation is recomputed in
+    fp32 (one extra fp32 conv per layer) and the activation's derivative is
+    taken at it (relu: ``pre > 0``; leaky_relu: 1 or the slope); the
+    gradients come back in their inputs' dtypes. The fp32 convolutions run
+    through cuDNN under PyTorch's own ``torch.backends.cudnn.allow_tf32``
+    (true by default). ``needs`` skips the gradients nobody asked for; a
+    skipped one is None."""
+    inputs = (x, w, bias)
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(n)
+                  for t, n in zip(inputs, needs)]
+        y = conv3x3_reference(*leaves, activation, negative_slope)
+    wanted = [t for t in leaves if t.requires_grad]
+    grads = list(torch.autograd.grad(y, wanted, g.float())
+                 if wanted else [])
+    return tuple(grads.pop(0).to(t.dtype) if n else None
+                 for t, n in zip(inputs, needs))
+
+
+class _FusedConv(torch.autograd.Function):
+    """One fused conv with its gradient: the kernel (or, on a CPU tensor,
+    its plain version) forward, :func:`conv3x3_vjp` backward. ``entry`` is
+    the public function whose ``launches`` counts the kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, activation, negative_slope, entry):
+        ctx.save_for_backward(x, w, bias)
+        ctx.act = (activation, negative_slope)
+        if x.device.type == "cpu":
+            return conv3x3_reference(x, w, bias, activation, negative_slope)
+        y = _launch(entry.__name__, x, w, bias, activation, negative_slope)
+        entry.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        grads = conv3x3_vjp(x, w, bias, g, *ctx.act,
+                            needs=ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
 def conv3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             activation: str = "relu",
             negative_slope: float = 0.01) -> torch.Tensor:
     """Port of K1 (``pallas_conv.py::conv3x3``): fused conv on NDHWC."""
     _check("conv3x3", x, w, bias)
-    if x.device.type == "cpu":
-        return conv3x3_reference(x, w, bias, activation, negative_slope)
-    y = _launch("conv3x3", x, w, bias, activation, negative_slope)
-    conv3x3.launches += 1
-    return y
+    return _FusedConv.apply(x, w, bias, activation, negative_slope, conv3x3)
 
 
 def conv3x3_flat(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -197,11 +247,8 @@ def conv3x3_flat(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """Port of K2 (``pallas_conv_flat.py::conv3x3_flat``): the same
     contract for any C_in >= 8; the same kernel as :func:`conv3x3`."""
     _check("conv3x3_flat", x, w, bias)
-    if x.device.type == "cpu":
-        return conv3x3_reference(x, w, bias, activation, negative_slope)
-    y = _launch("conv3x3_flat", x, w, bias, activation, negative_slope)
-    conv3x3_flat.launches += 1
-    return y
+    return _FusedConv.apply(x, w, bias, activation, negative_slope,
+                            conv3x3_flat)
 
 
 conv3x3.launches = 0

@@ -19,6 +19,11 @@ writing the fine NDHWC output; :func:`build_dec0_weights` is the twin of
 per version of the ``kernel`` tensor (``cuda_lib.cached``). :func:`tile_plan`
 gives the tile box, N tile, tile counts and the 11 TMA maps (x_deep, the
 two weights and the skip's 8 sub-parity views).
+
+:func:`up_concat_conv3x3_kernel` is differentiable on either device: its
+backward (:func:`up_concat_conv3x3_vjp`) is the port of the JAX custom VJP
+``pallas_dec0.py::_vjp_bwd``, autograd through the parity form plus the
+activation in the inputs' dtype; it never launches the kernel.
 """
 
 from __future__ import annotations
@@ -42,8 +47,10 @@ _S = (((1, 0, 0), (0, 1, 1)), ((1, 1, 0), (0, 0, 1)))
 @functools.cache
 def _tap_merge(device: torch.device) -> torch.Tensor:
     # one copy per device: a fresh host-to-device copy on every call would
-    # stall the host until the stream drains
-    return torch.tensor(_S, dtype=torch.float32, device=device)
+    # stall the host until the stream drains. Made outside inference mode,
+    # so autograd may save it when training follows serving.
+    with torch.inference_mode(False):
+        return torch.tensor(_S, dtype=torch.float32, device=device)
 
 
 def parity_up_weights(w_up: torch.Tensor) -> torch.Tensor:
@@ -214,27 +221,50 @@ def load_coords(plan: Dec0Plan, it: int, parity: int, b: int, d0: int,
             (2, (c0, k, n0)))
 
 
-def up_concat_conv3x3_kernel(x_deep: torch.Tensor, skip: torch.Tensor,
-                             kernel: torch.Tensor, bias: torch.Tensor,
-                             activation: str = "none",
-                             negative_slope: float = 0.3) -> torch.Tensor:
-    """Port of ``up_concat_conv3x3_pallas``: one fused decoder level.
+def up_concat_conv3x3_vjp(x_deep, skip, kernel, bias, g,
+                          activation: str, negative_slope: float,
+                          needs=(True, True, True, True)):
+    """(d x_deep, d skip, d kernel, d bias) of the fused decoder level for
+    the output cotangent ``g``: the VJP of :func:`up_concat_conv3x3` plus
+    the activation, recomputed in the inputs' dtypes (the JAX package's
+    ``_ref_fwd``). ``needs`` skips the gradients nobody asked for."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in
+                  zip((x_deep, skip, kernel, bias), needs)]
+        y = apply_activation(up_concat_conv3x3(*leaves), activation,
+                             negative_slope)
+    wanted = [t for t in leaves if t.requires_grad]
+    grads = list(torch.autograd.grad(y, wanted, g.to(y.dtype))
+                 if wanted else [])
+    return tuple(grads.pop(0) if t.requires_grad else None for t in leaves)
 
-    CPU tensors take :func:`up_concat_conv3x3_reference`; CUDA tensors
-    launch ``csrc/dec0.cu`` (bf16 operands, fp32 bias) or raise."""
-    up_ch, skip_ch, co = x_deep.shape[-1], skip.shape[-1], kernel.shape[-1]
-    if kernel.shape != (3, 3, 3, up_ch + skip_ch, co) or bias.shape != (co,):
-        raise ValueError(f"up_concat_conv3x3_kernel: kernel "
-                         f"{tuple(kernel.shape)} / bias {tuple(bias.shape)} "
-                         f"do not fit C_up={up_ch}, C_skip={skip_ch}")
-    if not dec0_available(x_deep.shape, skip.shape, up_ch, skip_ch, co):
-        raise ValueError(f"up_concat_conv3x3_kernel: x_deep "
-                         f"{tuple(x_deep.shape)}, skip {tuple(skip.shape)} "
-                         "fail dec0_available")
-    if x_deep.device.type == "cpu":
-        return up_concat_conv3x3_reference(x_deep, skip, kernel, bias,
-                                           activation, negative_slope)
+
+class _FusedDecoder(torch.autograd.Function):
+    """The fused decoder level with its gradient: the kernel (or, on a CPU
+    tensor, its plain version) forward, :func:`up_concat_conv3x3_vjp`
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x_deep, skip, kernel, bias, activation, negative_slope):
+        ctx.save_for_backward(x_deep, skip, kernel, bias)
+        ctx.act = (activation, negative_slope)
+        if x_deep.device.type == "cpu":
+            return up_concat_conv3x3_reference(x_deep, skip, kernel, bias,
+                                               activation, negative_slope)
+        y = _launch(x_deep, skip, kernel, bias, activation, negative_slope)
+        up_concat_conv3x3_kernel.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = up_concat_conv3x3_vjp(*ctx.saved_tensors, g, *ctx.act,
+                                      needs=ctx.needs_input_grad[:4])
+        return (*grads, None, None)
+
+
+def _launch(x_deep, skip, kernel, bias, activation, negative_slope):
     name = "up_concat_conv3x3_kernel"
+    up_ch, skip_ch, co = x_deep.shape[-1], skip.shape[-1], kernel.shape[-1]
     cuda_lib.require_cuda_bf16(name, x_deep=x_deep, skip=skip, bias=bias)
     w_up, w_skip = cuda_lib.cached(
         kernel, ("dec0", up_ch), lambda k: kernel_weights(k, up_ch))
@@ -254,8 +284,28 @@ def up_concat_conv3x3_kernel(x_deep: torch.Tensor, skip: torch.Tensor,
             cuda_lib.ACTIVATIONS[activation],
             float(negative_slope), torch.cuda.current_stream().cuda_stream)
     cuda_lib.check_launch(name, err)
-    up_concat_conv3x3_kernel.launches += 1
     return y
+
+
+def up_concat_conv3x3_kernel(x_deep: torch.Tensor, skip: torch.Tensor,
+                             kernel: torch.Tensor, bias: torch.Tensor,
+                             activation: str = "none",
+                             negative_slope: float = 0.3) -> torch.Tensor:
+    """Port of ``up_concat_conv3x3_pallas``: one fused decoder level.
+
+    CPU tensors take :func:`up_concat_conv3x3_reference`; CUDA tensors
+    launch ``csrc/dec0.cu`` (bf16 operands, fp32 bias) or raise."""
+    up_ch, skip_ch, co = x_deep.shape[-1], skip.shape[-1], kernel.shape[-1]
+    if kernel.shape != (3, 3, 3, up_ch + skip_ch, co) or bias.shape != (co,):
+        raise ValueError(f"up_concat_conv3x3_kernel: kernel "
+                         f"{tuple(kernel.shape)} / bias {tuple(bias.shape)} "
+                         f"do not fit C_up={up_ch}, C_skip={skip_ch}")
+    if not dec0_available(x_deep.shape, skip.shape, up_ch, skip_ch, co):
+        raise ValueError(f"up_concat_conv3x3_kernel: x_deep "
+                         f"{tuple(x_deep.shape)}, skip {tuple(skip.shape)} "
+                         "fail dec0_available")
+    return _FusedDecoder.apply(x_deep, skip, kernel, bias, activation,
+                               negative_slope)
 
 
 up_concat_conv3x3_kernel.launches = 0

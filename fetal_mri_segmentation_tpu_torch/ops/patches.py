@@ -1,8 +1,10 @@
-"""Patch-grid math for sliding-window inference (numpy).
+"""Patch-grid math for sliding-window inference and patch sampling (numpy).
 
 Copies of ``fetal_mri_segmentation_tpu/ops/patches.py::
-compute_patch_indices``, ``get_set_of_patch_indices`` and
-``gaussian_importance_map``. They are copied, not imported: importing that
+compute_patch_indices``, ``get_set_of_patch_indices``,
+``gaussian_importance_map``, ``get_random_nd_index`` and
+``get_patch_from_3d_data`` (its numpy path; the JAX package's native
+memcpy loader is not used here). They are copied, not imported: importing that
 module runs ``fetal_mri_segmentation_tpu/ops/__init__.py``, which imports
 jax. Tests hold each copy equal to its original.
 
@@ -72,3 +74,39 @@ def gaussian_importance_map(patch_shape: Sequence[int],
     w = w / w.max()
     w = np.maximum(w, 1e-3 * w.max())
     return w.astype(dtype)
+
+
+def get_random_nd_index(index_max: Sequence[int],
+                        rng: Optional[np.random.Generator] = None
+                        ) -> np.ndarray:
+    """Random nd index in [0, index_max] inclusive."""
+    rng = rng or np.random.default_rng()
+    return np.asarray([rng.integers(0, m, endpoint=True) for m in index_max],
+                      dtype=np.int64)
+
+
+def get_patch_from_3d_data(data: np.ndarray, patch_shape: Sequence[int],
+                           patch_index: Sequence[int]) -> np.ndarray:
+    """Slice a (possibly out-of-bounds) patch of the last three axes of
+    ``data`` (..., D, H, W); out-of-bounds reads are zero. A patch inside
+    the volume is a view of ``data``.
+
+    The JAX package's numpy path slices with a negative stop, and returns
+    a patch of the wrong shape, when the patch lies wholly outside the
+    volume along an axis; its native loader, which it uses where it is
+    built, returns zeros, as this copy does."""
+    patch_shape = np.asarray(patch_shape, dtype=np.int64)
+    patch_index = np.asarray(patch_index, dtype=np.int64)
+    image_shape = np.asarray(data.shape[-3:], dtype=np.int64)
+
+    lo = np.clip(patch_index, 0, image_shape)
+    hi = np.maximum(np.clip(patch_index + patch_shape, 0, image_shape), lo)
+    src = (...,) + tuple(slice(int(a), int(b)) for a, b in zip(lo, hi))
+    if np.array_equal(hi - lo, patch_shape):
+        return data[src]
+    patch = np.zeros(data.shape[:-3] + tuple(int(s) for s in patch_shape),
+                     data.dtype)
+    dst = (...,) + tuple(slice(int(a - i), int(b - i))
+                         for a, b, i in zip(lo, hi, patch_index))
+    patch[dst] = data[src]
+    return patch

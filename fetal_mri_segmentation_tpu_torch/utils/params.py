@@ -46,6 +46,32 @@ def from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def load_optax_adam_state(optimizer, model, count: int,
+                          mu: Mapping[str, np.ndarray],
+                          nu: Mapping[str, np.ndarray],
+                          learning_rate: float) -> None:
+    """Carry an optax ``ScaleByAdamState`` over to ``optimizer`` (a
+    ``training.state.KerasAdam`` over ``model.parameters()``), as
+    :func:`from_flax` carries the weights.
+
+    ``mu`` and ``nu`` are the moments as flattened flax trees (the params'
+    paths, DHWIO kernels), ``count`` the step count and ``learning_rate``
+    the optimizer's ``hyperparams["learning_rate"]``."""
+    moments = from_flax(mu), from_flax(nu)
+    params = dict(model.named_parameters())
+    for tree in moments:
+        if set(tree) != set(params):
+            raise ValueError(
+                f"optimizer moments name {sorted(set(tree) ^ set(params))} "
+                "that the model lacks or misses")
+    for name, p in params.items():
+        optimizer.state[p] = {
+            "count": int(count),
+            "mu": moments[0][name].to(device=p.device, dtype=p.dtype),
+            "nu": moments[1][name].to(device=p.device, dtype=p.dtype)}
+    optimizer.set_learning_rate(float(learning_rate))
+
+
 def flax_param_shapes(config) -> Dict[str, tuple]:
     """Shapes of the flax ``UNet3D`` param tree for ``config``, flattened,
     in the order the model creates them."""

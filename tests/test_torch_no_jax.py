@@ -1,6 +1,7 @@
 """The port runs where there is no JAX stack: in a subprocess whose import
 system refuses jax, jaxlib, flax, optax, orbax and h5py, every port module
-imports and a tiny bf16 predict runs on the CPU through the kernel routes;
+imports, a tiny bf16 predict runs on the CPU through the kernel routes and
+``train_model`` trains two epochs from an in-memory data file;
 ``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone."""
 
@@ -67,6 +68,41 @@ except RuntimeError as e:
     assert "cuda" in str(e)
 else:
     raise AssertionError("device='cuda' did not raise")
+
+# training: two epochs of train_model with augmentation on an in-memory
+# data file, through the kernel routes, a checkpoint and its reload
+import os, tempfile
+from fetal_mri_segmentation_tpu_torch.data.memory import InMemoryDataFile
+from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+    get_training_and_validation_generators)
+from fetal_mri_segmentation_tpu_torch.training.checkpoint import CheckpointIO
+from fetal_mri_segmentation_tpu_torch.training.loop import train_model
+from fetal_mri_segmentation_tpu_torch.training.state import (
+    create_train_state)
+
+work = tempfile.mkdtemp()
+tcfg = Config(image_shape=(12, 12, 12), patch_shape=(8, 8, 8), depth=2,
+              n_base_filters=8, batch_size=2, validation_batch_size=2,
+              use_pallas_conv=True, use_pallas_dec0=True, n_epochs=2,
+              model_file=os.path.join(work, "m.pt"),
+              training_file=os.path.join(work, "t.pkl"),
+              validation_file=os.path.join(work, "v.pkl"),
+              training_log=os.path.join(work, "log.csv"))
+rng = np.random.default_rng(1)
+truth = np.zeros((3, 1, 12, 12, 12), np.uint8)
+truth[:, :, 3:9, 3:9, 3:9] = 1
+data = (truth * 2.0 + rng.normal(0, 0.3, truth.shape)).astype(np.float32)
+tg, n_t, vg, n_v = get_training_and_validation_generators(
+    InMemoryDataFile(data, truth), batch_size=2, n_labels=1,
+    training_keys_file=tcfg.training_file,
+    validation_keys_file=tcfg.validation_file, data_split=0.7,
+    patch_shape=tcfg.patch_shape, training_patch_start_offset=(2, 2, 2),
+    seed=0)
+model = build_model(tcfg, "cpu")
+state = train_model(model, create_train_state(model, tcfg), tcfg, tg, vg,
+                    n_t, n_v, verbose=False)
+assert state.step == 2 * n_t
+assert CheckpointIO(tcfg.model_file).peek_epoch() in (1, 2)
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")

@@ -27,31 +27,47 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profile(predictor, data, label: str, trace_dir=None, top: int = 12):
+def profile(run, label: str, trace_dir=None, top: int = 12,
+            unit: str = "case"):
+    """Time ``run()`` (one warm-up, three timed calls ending in a
+    synchronize), then profile one call and print the device-busy time,
+    the idle share and the kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    predictor.predict_labels(data)
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
-        predictor.predict_labels(data)
+        run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        predictor.predict_labels(data)
+        run()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    # device kernels; a user annotation (the optimizer's step range) spans
+    # kernels already counted
+    rows = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in rows)
-    print(f"{label}: {wall:.4f} s/case (host clock, 3 runs); device busy "
+    print(f"{label}: {wall:.4f} s/{unit} (host clock, 3 runs); device busy "
           f"{busy_us / 1e6:.4f} s in the profiled run; idle share "
           f"{1 - busy_us / 1e6 / wall:.3f}")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
-              f"{e.count:6d} calls  {e.key[:90]}")
+              f"{e.count:6d} calls  {e.key[:120]}")
+    # the host ops that launched them (the kernels' device time by op)
+    ops = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    print(f"{label}: device time by launching op")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.count:6d} calls  {e.key[:120]}")
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, f"{label}.json"))
@@ -86,7 +102,7 @@ def main(config_path: str, trace_dir=None) -> None:
         predictor = build_serving_predictor(
             model, config, overlap=config.validation_patch_overlap,
             device="cuda")
-        profile(predictor, data, label, trace_dir)
+        profile(lambda: predictor.predict_labels(data), label, trace_dir)
         del model, predictor
         torch.cuda.empty_cache()
 
