@@ -30,7 +30,24 @@ Phases, one line each (or one line per checked shape):
    with TF32 off for the kernel route's fp32 backward convolutions), then
    ``train_model`` for two epochs on the three synthetic cases
    preprocessed into an in-memory data file, with augmentation, and the
-   kernels' launch counts over that run: one forward's worth per step.
+   kernels' launch counts over that run: one forward's worth per step;
+6. serve: the same config and weights through the serving surface. The
+   on-device preprocessing of the three cases against the host's scipy
+   path (and its seconds per case against the host's), then on one
+   device-preprocessed case the direct predictor plain, with flips and
+   with the 48 symmetries, and the sliding window with flips and with the
+   48 symmetries, each against the switches off; ``predict.main`` with
+   ``direct`` and ``device_preprocess`` on the three cases and with
+   ``prob_map`` (float32 and uint8) on one; ``serve.main`` with ``once``
+   and a stats file on a watch directory of the three cases. Every counted
+   run's launches must be its forwards' worth exactly; each path prints
+   its seconds per case with the kernels and without.
+
+The kernel phase also checks every kernel layer of the direct 128^3
+forward at batch 1 and at the TTA chunks of 2 and 8, and prints each
+shape's bound (the larger of its operations over
+the bf16 peak and its bytes over the HBM rate) and the time of one cuDNN
+convolution on the same inputs (``library_ms``).
 
 Then one JSON line describing the kernels, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
@@ -71,6 +88,10 @@ PROB_TOL = 2e-2
 # misrouted gradient (relative error 1). The loss is a ratio of sums over
 # 1.5M voxels, where those roundings average out.
 GRAD_REL_TOL, LOSS_TOL = 5e-2, 1e-3
+# The published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at
+# the full 700 W power limit): bf16 tensor cores and HBM3. A kernel's bound
+# is the larger of its operations and its bytes over these.
+PEAK_BF16_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 
 B = 8  # patches per forward: the entry point's --patch-batch-size
 # (entry point, layer, batch, D, H, W, C_in, C_out): every kernel conv of
@@ -120,6 +141,19 @@ CONV_SHAPES += [(entry, f"train {layer}", tb, *rest)
 DEC_SHAPES += [(f"train {layer}", tb, *rest)
                for layer, _, *rest in DEC_SHAPES
                if layer[:3] in SLICE_LAYERS for tb in TRAIN_BATCHES]
+# The serve phase's shapes: the direct predictor runs every kernel layer on
+# the whole 128^3 volume at batch 1 (twice the patch's extent per axis),
+# and its test-time augmentation runs every layer again in chunks of 2
+# (flips) and 8 (the 48 symmetries), where the full-resolution layers hold
+# the largest tensors (8 x 128^3 x 64 bf16 is 2^31 bytes). Labelled
+# "direct ..." and "tta<b> ...", they stay out of the serving sums.
+DIRECT_BATCHES = (("direct", 1), ("tta2", 2), ("tta8", 8))
+CONV_SHAPES += [(entry, f"{tag} {layer}", b, 2 * d, 2 * h, 2 * w, ci, co)
+                for entry, layer, _, d, h, w, ci, co in CONV_SHAPES
+                if layer[:3] in SLICE_LAYERS for tag, b in DIRECT_BATCHES]
+DEC_SHAPES += [(f"{tag} {layer}", b, 2 * d, 2 * h, 2 * w, *rest)
+               for layer, _, d, h, w, *rest in DEC_SHAPES
+               if layer[:3] in SLICE_LAYERS for tag, b in DIRECT_BATCHES]
 # the slice's blocks use relu; the extra shapes cover the other activations
 ACTIVATION = {"non-cubic": "none", "ragged": "leaky_relu",
               "ragged-K": "leaky_relu", "ragged-N": "none"}
@@ -150,28 +184,50 @@ def time_ms(torch, fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def check(label, out, ref, stats, entry, is_slice, ms, plain_ms, prep_ms,
-          flop):
+def bound_ms(flop: float, nbytes: float):
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes (each input read once,
+    each output written once) over the HBM rate; and which of the two."""
+    ops, mem = flop / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def check(label, out, ref, stats, entry, is_slice, times, flop, nbytes):
+    """Hold one kernel call against its plain version and record its times
+    (``times``: ms, plain_ms, prep_ms and library_ms or None)."""
     err = (out.float() - ref).abs().max().item()
     scale = ref.abs().max().item()
     tol = REL_TOL * scale + ABS_TOL
+    bound, by = bound_ms(flop, nbytes)
+    lib = times["library_ms"]
     print(f"kernel {entry} {label}: max|diff| {err:.6g} <= tol {tol:.6g} "
-          f"(max|ref| {scale:.6g}); ms {ms:.6g} plain_ms {plain_ms:.6g} "
-          f"prep_ms {prep_ms:.6g}; {flop / ms / 1e9:.6g} TFLOP/s",
+          f"(max|ref| {scale:.6g}); ms {times['ms']:.6g} plain_ms "
+          f"{times['plain_ms']:.6g} library_ms "
+          f"{'none' if lib is None else f'{lib:.6g}'} prep_ms "
+          f"{times['prep_ms']:.6g}; {flop / times['ms'] / 1e9:.6g} TFLOP/s; "
+          f"bound {bound:.6g} ms ({by}), {bound / times['ms']:.4f} of it",
           flush=True)
     if not err <= tol:
         raise AssertionError(f"{entry} {label}: max|diff| {err} > {tol}")
     s = stats.setdefault(entry, {"max_abs_err": 0.0, "ms": 0.0,
-                                 "plain_ms": 0.0})
+                                 "plain_ms": 0.0, "bound_ms": 0.0,
+                                 "library_ms": None, "prep": 0.0,
+                                 "ops_ms": 0.0, "bytes_ms": 0.0})
     s["max_abs_err"] = max(s["max_abs_err"], err)
     if is_slice:
-        s["ms"] += ms
-        s["plain_ms"] += plain_ms
-        s.setdefault("prep", 0.0)
-        s["prep"] += prep_ms
+        s["ms"] += times["ms"]
+        s["plain_ms"] += times["plain_ms"]
+        s["prep"] += times["prep_ms"]
+        s["bound_ms"] += bound
+        s["ops_ms"] += flop / PEAK_BF16_FLOPS * 1e3
+        s["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        if lib is not None:
+            s["library_ms"] = (s["library_ms"] or 0.0) + lib
 
 
 def kernel_phase(torch, stats) -> None:
+    import torch.nn.functional as F
+
     from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
     from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
 
@@ -190,15 +246,26 @@ def kernel_phase(torch, stats) -> None:
         out = op(x, wt, bias, *act)
         torch.cuda.synchronize()
         ref = conv_ops.conv3x3_reference(x.float(), wt.float(), bias, *act)
-        # the K-major weight is made at the first call and kept with wt
-        ms = time_ms(torch, lambda: op(x, wt, bias, *act))
-        plain_ms = time_ms(torch, lambda: conv_ops.conv3x3_reference(
-            x, wt, bias, *act))
-        prep_ms = time_ms(torch, lambda: wt.permute(4, 0, 1, 2, 3).contiguous())
+        # the library yardstick: one cuDNN convolution with its bias (no
+        # activation), on a channels-last view and weight prepared here
+        x_lib = x.permute(0, 4, 1, 2, 3)
+        w_lib = wt.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        b_lib = bias.to(torch.bfloat16)
+        times = {
+            # the K-major weight is made at the first call and kept with wt
+            "ms": time_ms(torch, lambda: op(x, wt, bias, *act)),
+            "plain_ms": time_ms(torch, lambda: conv_ops.conv3x3_reference(
+                x, wt, bias, *act)),
+            "library_ms": time_ms(torch, lambda: F.conv3d(
+                x_lib, w_lib, b_lib, padding=1)),
+            "prep_ms": time_ms(torch, lambda: wt.permute(
+                4, 0, 1, 2, 3).contiguous())}
         check(f"{layer} {(b, d, h, w)} {ci}->{co} {act[0]}", out, ref, stats,
-              entry, layer[:3] in SLICE_LAYERS, ms, plain_ms, prep_ms,
-              2 * b * d * h * w * 27 * ci * co)
-        del x, wt, out, ref
+              entry, layer[:3] in SLICE_LAYERS, times,
+              2 * b * d * h * w * 27 * ci * co,
+              2 * (x.numel() + wt.numel() + out.numel()) + 4 * co)
+        del x, wt, out, ref, x_lib, w_lib
 
     entry = "up_concat_conv3x3_kernel"
     for layer, b, d, h, w, cu, cs, co in DEC_SHAPES:
@@ -211,21 +278,33 @@ def kernel_phase(torch, stats) -> None:
         torch.cuda.synchronize()
         ref = dec_ops.up_concat_conv3x3_reference(
             xd.float(), skip.float(), k.float(), bias, *act)
-        # the pre-summed K-major weights are made at the first call, kept
-        # with k
-        ms = time_ms(torch, lambda: dec_ops.up_concat_conv3x3_kernel(
-            xd, skip, k, bias, *act))
-        plain_ms = time_ms(torch, lambda: dec_ops.up_concat_conv3x3_reference(
-            xd, skip, k, bias, *act))
-        prep_ms = time_ms(torch, lambda: dec_ops.kernel_weights(k, cu))
+        times = {
+            # the pre-summed K-major weights are made at the first call,
+            # kept with k
+            "ms": time_ms(torch, lambda: dec_ops.up_concat_conv3x3_kernel(
+                xd, skip, k, bias, *act)),
+            "plain_ms": time_ms(
+                torch, lambda: dec_ops.up_concat_conv3x3_reference(
+                    xd, skip, k, bias, *act)),
+            # no one PyTorch call upsamples, concatenates and convolves
+            "library_ms": None,
+            "prep_ms": time_ms(torch, lambda: dec_ops.kernel_weights(k, cu))}
         check(f"{layer} {(b, d, h, w)} {cu}+{cs}->{co} {act[0]}", out, ref,
-              stats, entry, layer[:3] in SLICE_LAYERS, ms, plain_ms, prep_ms,
-              2 * b * 8 * d * h * w * (8 * cu + 27 * cs) * co)
+              stats, entry, layer[:3] in SLICE_LAYERS, times,
+              2 * b * 8 * d * h * w * (8 * cu + 27 * cs) * co,
+              2 * (xd.numel() + skip.numel() + k.numel() + out.numel())
+              + 4 * co)
         del xd, skip, k, out, ref
     for entry, s in stats.items():
+        ops, mem = s.pop("ops_ms"), s.pop("bytes_ms")
+        s["bound_by"] = "operations" if ops >= mem else "bytes"
+        lib = s["library_ms"]
         print(f"slice sum {entry}: kernel {s['ms']:.6g} ms (+ one-off weight "
-              f"preparation {s.pop('prep', 0.0):.6g} ms) against plain "
-              f"{s['plain_ms']:.6g} ms", flush=True)
+              f"preparation {s.pop('prep'):.6g} ms) against plain "
+              f"{s['plain_ms']:.6g} ms, library "
+              f"{'none' if lib is None else f'{lib:.6g} ms'}, bound "
+              f"{s['bound_ms']:.6g} ms ({s['bound_by']}; operations term "
+              f"{ops:.6g} ms, bytes term {mem:.6g} ms)", flush=True)
 
 
 def wgmma_check(lib_path: Path) -> str:
@@ -593,7 +672,285 @@ def train_phase(torch, work: Path) -> dict:
     return launches
 
 
+def serve_phase(torch, work: Path) -> dict:
+    """The serving surface: the direct and TTA predictors, on-device
+    preprocessing, the probability map and the watch server, each held to
+    the kernels-off path and its launch count."""
+    import dataclasses
+    import json as json_mod
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch import predict as entry
+    from fetal_mri_segmentation_tpu_torch import serve
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.inference.predict import (
+        build_serving_predictor, load_serving_model,
+        make_device_preprocessor, predict_cases_pipelined, preprocess_case)
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.ops.resample import (
+        DevicePreprocessor)
+    from fetal_mri_segmentation_tpu_torch.utils.geometry import (
+        process_case_images)
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import (
+        load_nifti, save_nifti)
+    from fetal_mri_segmentation_tpu_torch.utils.params import init_flax_like
+
+    config = Config.load(str(ROOT / "configs" / "fetal_unet.json"))
+    config.use_pallas_conv = True
+    config.use_pallas_dec0 = True
+    config_off = dataclasses.replace(config, use_pallas_conv=False,
+                                     use_pallas_dec0=False)
+    overlap = config.validation_patch_overlap
+    params = work / "params.npz"
+    np.savez(params, **init_flax_like(config, seed=0))
+    watch = work / "watch"
+    inputs = write_cases(watch)
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+    launches = {}
+
+    def counted(label, forwards, run):
+        """``run()`` with the counts set to 0 just before and read just
+        after; they must be ``forwards`` forwards' worth."""
+        for fn in counters:
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {fn.__name__: fn.launches for fn in counters}
+        want = {k: v * forwards for k, v in PER_FORWARD.items()}
+        if got != want:
+            raise AssertionError(f"serve {label}: launches {got}, not {want}")
+        launches[label] = got
+        return out
+
+    def timed(fn, n=1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n
+
+    # preprocessing: the host path (scipy) against the device path, fp32
+    # (held to the host at the JAX tests' bound) and bf16 (what a bf16
+    # model's serving path stages)
+    model_on = load_serving_model(config, str(params), "cuda")
+    model_off = load_serving_model(config_off, str(params), "cuda")
+    pre32 = DevicePreprocessor(config.image_shape, config.normalization)
+    pre16 = make_device_preprocessor(model_on, config)
+    preprocess_case(inputs[0], config, device_pre=pre32)  # warm-up
+    host_s, dev_s, worst, worst16 = [], [], -float("inf"), 0.0
+    for path in inputs:
+        t = time.perf_counter()
+        host, host_aff, _ = preprocess_case(path, config)
+        host_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        dev, dev_aff, _ = preprocess_case(path, config, device_pre=pre32)
+        torch.cuda.synchronize()
+        dev_s.append(time.perf_counter() - t)
+        dev = dev.cpu().numpy()
+        excess = np.abs(dev - host) - (5e-3 + 1e-3 * np.abs(host))
+        worst = max(worst, float(excess.max()))
+        if not np.allclose(dev_aff, host_aff, rtol=0, atol=1e-9):
+            raise AssertionError(f"{path}: device affine {dev_aff} against "
+                                 f"{host_aff}")
+        dev16 = preprocess_case(path, config, device_pre=pre16)[0]
+        worst16 = max(worst16, float(np.abs(
+            dev16.float().cpu().numpy() - host).max() / host.std()))
+    # where the device path's host time goes: the NIfTI reads (gunzip) and
+    # the background crop, then the upload, resample and normalize
+    t = time.perf_counter()
+    images = [load_nifti(f"{inputs[0]}/{name}.nii.gz")
+              for name in ("volume", "truth")]
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cropped = process_case_images(images, image_shape=None)
+    crop_s = time.perf_counter() - t
+    arrays = [cropped[0].get_fdata(dtype=np.float32)]
+    zoom_ms = time_ms(torch, lambda: pre32(arrays))
+    print(f"serve preprocess: per case host {np.mean(host_s):.4f} s "
+          f"(scipy), device {np.mean(dev_s):.4f} s (read, crop, upload, "
+          f"resample and normalize; of it NIfTI reads {read_s:.4f} s, crop "
+          f"{crop_s:.4f} s, {zoom_ms:.4f} ms on the card "
+          f"from {arrays[0].shape}); fp32 device path within atol 5e-3 + "
+          f"rtol 1e-3 of the host (worst margin {-worst:.6g}), affine "
+          f"within 1e-9; bf16 staging max |diff| {worst16:.6g} of the "
+          f"host's std (bound 5e-2)", flush=True)
+    if worst > 0:
+        raise AssertionError(f"device preprocessing off the host by {worst} "
+                             "beyond atol 5e-3 + rtol 1e-3")
+    if not worst16 < 5e-2:
+        raise AssertionError(f"bf16 device preprocessing {worst16} std off")
+
+    data = preprocess_case(inputs[0], config, device_pre=pre16)[0]
+
+    def compare(label, on, off, forwards, repeats):
+        """The counted kernels-on run and the kernels-off run, each timed;
+        a cheap path (``repeats`` > 0) is timed again over that many warm
+        label-map runs, where one call's host clock is too short to read."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p_on = counted(label, forwards, lambda: on.predict_probabilities(
+            data))
+        on_s = time.perf_counter() - t
+        t = time.perf_counter()
+        p_off = off.predict_probabilities(data)
+        torch.cuda.synchronize()
+        off_s = time.perf_counter() - t
+        if repeats:
+            on_s = timed(lambda: on.predict_labels(data), repeats)
+            off_s = timed(lambda: off.predict_labels(data), repeats)
+        if p_on.shape != (config.n_labels,) + tuple(config.image_shape):
+            raise AssertionError(f"{label}: shape {tuple(p_on.shape)}")
+        if not bool(torch.isfinite(p_on).all()):
+            raise AssertionError(f"{label}: non-finite probabilities")
+        diff = (p_on - p_off).abs().max().item()
+        flip = (p_on[0] > 0.5) != (p_off[0] > 0.5)
+        far = int((flip & ((p_off[0] - 0.5).abs() >= PROB_TOL)).sum().item())
+        print(f"serve {label}: max|p_on - p_off| {diff:.6g} <= tol "
+              f"{PROB_TOL}; label flips {int(flip.sum().item())}, {far} with "
+              f"|p - 0.5| >= tol; {on_s:.4f} s per case with kernels, "
+              f"{off_s:.4f} s without ("
+              f"{f'{repeats} warm label-map runs' if repeats else 'one probability run'}"
+              f"); launches {launches[label]}", flush=True)
+        if not diff <= PROB_TOL or far:
+            raise AssertionError(f"{label}: kernels on against off {diff}, "
+                                 f"{far} far flips")
+        return p_on
+
+    # the predictors, on the device-preprocessed case: 27 patches in 4
+    # batches of 8 for the sliding window, one forward per TTA chunk for the
+    # direct predictor (flips in 4 chunks of 2, permute in 6 of 8)
+    for label, kw, forwards, repeats in (
+            ("direct", {"direct": True}, 1, 3),
+            ("direct flips", {"direct": True, "tta": "flips"}, 4, 2),
+            ("direct permute", {"direct": True, "tta": "permute"}, 6, 0),
+            ("sliding flips", {"tta": "flips"}, 4 * 8, 0),
+            ("sliding permute", {"tta": "permute"}, 4 * 48, 0)):
+        on = build_serving_predictor(model_on, config, overlap=overlap,
+                                     device="cuda", **kw)
+        off = build_serving_predictor(model_off, config_off, overlap=overlap,
+                                      device="cuda", **kw)
+        compare(label, on, off, forwards, repeats)
+        del on, off
+        torch.cuda.empty_cache()
+
+    # the pipelined stream with the direct predictor and the device
+    # preprocessor already built: seconds per case end to end, and the
+    # NIfTI writes it queues (the label map here; where the inputs are
+    # saved, an fp32 volume per modality and the truth too)
+    direct_on = build_serving_predictor(model_on, config, direct=True,
+                                        device="cuda")
+    out_dir = work / "stream"
+    e2e = timed(lambda: predict_cases_pipelined(
+        [(p, str(out_dir / Path(p).name)) for p in inputs], direct_on,
+        config, device_pre=pre16, save_inputs=False,
+        verbose=False)) / len(inputs)
+    label = load_nifti(str(out_dir / "case_0" / "prediction.nii.gz"))
+    write_s = timed(lambda: save_nifti(label.get_fdata().astype(np.uint8),
+                                       str(work / "label.nii.gz"),
+                                       affine=label.affine))
+    vol_s = timed(lambda: save_nifti(host[0], str(work / "vol.nii.gz"),
+                                     affine=label.affine))
+    print(f"serve pipelined --direct --device-preprocess: {e2e:.4f} s per "
+          f"case over {len(inputs)} cases, models built; one label-map "
+          f"write {write_s:.4f} s, one fp32 volume write {vol_s:.4f} s",
+          flush=True)
+    del direct_on
+
+    # predict --direct --device-preprocess on the three cases, on and off
+    seconds = {}
+    for name, cfg in (("on", config), ("off", config_off)):
+        out_dir = work / f"direct_{name}"
+
+        def run(cfg=cfg, out_dir=out_dir):
+            return entry.main(cfg, str(params), inputs,
+                              output_dir=str(out_dir), direct=True,
+                              device_preprocess=True, device="cuda",
+                              verbose=False)
+
+        t = time.perf_counter()
+        n = (counted("predict --direct", len(inputs), run) if name == "on"
+             else run())
+        seconds[name] = (time.perf_counter() - t) / n
+        for path in inputs:
+            label = load_nifti(str(out_dir / Path(path).name
+                                   / "prediction.nii.gz")).get_fdata()
+            if label.shape != tuple(config.image_shape) or not set(
+                    np.unique(label)) <= {0.0, 1.0}:
+                raise AssertionError(f"{out_dir}: label map {label.shape}")
+    print(f"serve predict --direct --device-preprocess: {len(inputs)} "
+          f"cases, {seconds['on']:.4f} s per case with kernels, "
+          f"{seconds['off']:.4f} s without (model build included); launches "
+          f"{launches['predict --direct']}", flush=True)
+
+    # --prob-map, float32 and uint8 on one case (sliding window): the stored
+    # integers reload within 2.0e-3 (half a step of 1/255) of the floats
+    maps = {}
+    for dtype in ("float32", "uint8"):
+        out_dir = work / f"prob_{dtype}"
+
+        def run(dtype=dtype, out_dir=out_dir):
+            return entry.main(config, str(params), inputs[:1],
+                              output_dir=str(out_dir), prob_map=True,
+                              prob_dtype=dtype, device="cuda", verbose=False)
+
+        t = time.perf_counter()
+        counted(f"predict --prob-map {dtype}", 4, run)
+        seconds[dtype] = time.perf_counter() - t
+        maps[dtype] = load_nifti(str(out_dir / Path(inputs[0]).name
+                                     / "prediction.nii.gz")).get_fdata()
+    q_err = float(np.abs(maps["uint8"] - maps["float32"]).max())
+    # the float32 map against the kernels-off sliding window on the same
+    # host-preprocessed case
+    off = build_serving_predictor(model_off, config_off, overlap=overlap,
+                                  device="cuda")
+    p_off = off.predict_probabilities(preprocess_case(inputs[0], config)[0])
+    p_off = p_off[0].cpu().numpy()
+    p_diff = float(np.abs(maps["float32"] - p_off).max())
+    far = int(((maps["float32"] > 0.5) != (p_off > 0.5))[
+        np.abs(p_off - 0.5) >= PROB_TOL].sum())
+    print(f"serve predict --prob-map: uint8 reloads within {q_err:.6g} of "
+          f"float32 (bound 2.0e-3); float32 within {p_diff:.6g} of the "
+          f"kernels-off predictor (tol {PROB_TOL}), {far} far label flips; "
+          f"{seconds['float32']:.4f} s float32, {seconds['uint8']:.4f} s "
+          f"uint8 for one case (model build included)", flush=True)
+    if not q_err <= 2.0e-3:
+        raise AssertionError(f"uint8 probability map off by {q_err}")
+    if not p_diff <= PROB_TOL or far:
+        raise AssertionError(f"--prob-map against kernels off: {p_diff}, "
+                             f"{far} far flips")
+
+    # serve --once on the watch directory (sliding window, device
+    # preprocessing), then its labels against the kernels-off predictor
+    stats_file = work / "stats.json"
+    n = counted("serve --once", 4 * len(inputs), lambda: serve.main(
+        config, str(params), str(watch), output=str(work / "served"),
+        once=True, device_preprocess=True, stats_file=str(stats_file),
+        device="cuda", verbose=False))
+    stats = json_mod.loads(stats_file.read_text())
+    far = 0
+    for path in inputs:
+        x = preprocess_case(path, config, device_pre=pre16)[0]
+        p_off = off.predict_probabilities(x)[0].cpu().numpy()
+        got = load_nifti(str(work / "served" / Path(path).name
+                             / "prediction.nii.gz")).get_fdata()
+        far += int(((got > 0.5) != (p_off > 0.5))[
+            np.abs(p_off - 0.5) >= PROB_TOL].sum())
+    print(f"serve --once: {n} cases, latency p50 {stats['latency_sec']['p50']}"
+          f" s, p95 {stats['latency_sec']['p95']} s; {far} label flips "
+          f"against the kernels-off predictor with |p - 0.5| >= {PROB_TOL}; "
+          f"launches {launches['serve --once']}", flush=True)
+    if n != len(inputs) or stats["predicted"] != n or far:
+        raise AssertionError(f"serve --once: {n} cases, stats {stats}, "
+                             f"{far} far flips")
+    return launches
+
+
 def main() -> None:
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -627,17 +984,30 @@ def main() -> None:
           flush=True)
 
     stats = {}
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     kernel_phase(torch, stats)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
-        launches = slice_phase(torch, Path(work))
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
-        train_launches = train_phase(torch, Path(work))
+    seconds["kernels"] = time.perf_counter() - t0
+    results = {}
+    for name, phase in (("slice", slice_phase), ("train", train_phase),
+                        ("serve", serve_phase)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as work:
+            results[name] = phase(torch, Path(work))
+        seconds[name] = time.perf_counter() - t0
+    launches, train_launches, serve_launches = results.values()
+    print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in seconds.items())
+          + f"; {time.perf_counter() - start:.4f} since the script started",
+          flush=True)
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
-                "train_launches": train_launches[name], **stats[name]}
+                "train_launches": train_launches[name],
+                "serve_launches": {path: counts[name] for path, counts
+                                   in serve_launches.items()},
+                **stats[name]}
                for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,14 @@
 """PyTorch + CUDA port of ``fetal_mri_segmentation_tpu`` for NVIDIA Hopper.
 
-Covers sliding-window serving of the 3D U-Net: ``config`` (the JAX
-package's ``Config``), ``models`` (``UNet3D``), ``ops`` (the hand-written
-Hopper kernels ``conv3x3`` and ``dec0`` with their plain PyTorch twins,
-patch-grid math), ``data.normalize``, ``inference``
-(``SlidingWindowPredictor``, per-case NIfTI serving), ``utils.params`` (weights from the flax tree) and
-the ``predict`` entry point. Imports torch, never jax.
+Covers serving and training of the 3D U-Net on one device: ``config`` (a
+copy of the JAX package's ``Config``), ``models`` (``UNet3D``), ``ops``
+(the hand-written Hopper kernels ``conv3x3`` and ``dec0`` with their plain
+PyTorch twins, patch-grid math, augmentation, dice, on-device resampling),
+``data``, ``pipeline`` and ``training`` (the train step and loop),
+``inference`` (the sliding-window predictor, per-case and pipelined NIfTI
+serving, the watch-directory server), ``parallel.spatial`` (the direct
+whole-volume predictor), ``utils`` (copies of the JAX package's
+numpy-only helpers, weights from the flax tree) and the ``predict`` and
+``serve`` entry points. Imports torch, never jax, and nothing of the JAX
+package.
 """

@@ -11,9 +11,17 @@ in place into one fp32 accumulator on the device. One division at the end.
 (The JAX package's static unroll and tiled segment-sum were workarounds
 for XLA's scatter on the TPU; eager in-place adds need neither.)
 
-The model's weights move to the device once, at construction; each volume
-is staged to the device in the model's compute dtype (rounded on the host,
-so a bf16 model uploads half the bytes).
+Optional patch-level test-time augmentation averages the model's output
+over the 48 cube symmetries (``tta="permute"``, cubic patches only; the
+reference's ``predict(permute=True)``) or the 8 axis flips
+(``tta="flips"``, any patch shape): one forward of the patch batch per
+member, mapped back by the inverse symmetry.
+
+The model's weights move to the device once, at construction. A volume is
+staged in the model's compute dtype (``utils/residency.py::
+stage_to_device``); a tensor already on the card is used in place. The
+``*_async`` calls enqueue the whole volume's work and return device tensors
+without a synchronization; ``unpack_*`` copies the result to the host.
 """
 
 from __future__ import annotations
@@ -23,17 +31,43 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from fetal_mri_segmentation_tpu.inference.labelmaps import label_map_dtype
+from fetal_mri_segmentation_tpu_torch.ops.augment import (
+    permute_volume, reverse_permute_volume)
 from fetal_mri_segmentation_tpu_torch.ops.patches import (
     compute_patch_indices, gaussian_importance_map)
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
+from fetal_mri_segmentation_tpu_torch.utils.packing import (
+    device_label_map, host_label_map)
+from fetal_mri_segmentation_tpu_torch.utils.residency import (
+    normalize_tta_mode, stage_to_device, transfer_prob, unpack_prob_f32)
+
+TTA_MEMBERS = {"flips": 8, "permute": 48}
+
+
+def flip_member(x: torch.Tensor, idx: int, axes=(1, 2, 3)) -> torch.Tensor:
+    """Member ``idx`` of the 8 axis flips, bits (idx >> 2, idx >> 1, idx)
+    over ``axes`` (an involution, so also its own inverse)."""
+    dims = [a for a, bit in zip(axes, (idx >> 2 & 1, idx >> 1 & 1, idx & 1))
+            if bit]
+    return x.flip(dims) if dims else x
+
+
+def tta_member(mode: str, x: torch.Tensor, idx: int,
+               inverse: bool = False) -> torch.Tensor:
+    """Member ``idx`` of the TTA group ``mode`` (or its inverse) applied to
+    the spatial axes of an NDHWC batch."""
+    if mode == "flips":
+        return flip_member(x, idx)
+    fn = reverse_permute_volume if inverse else permute_volume
+    return fn(x.movedim(-1, 1), idx).movedim(1, -1)
 
 
 class SlidingWindowPredictor:
     """Predictor for one volume geometry; reuse it across volumes."""
 
     def __init__(self, model, config, image_shape: Sequence[int],
-                 overlap: int = 16, patch_batch_size: int = 8, device=None):
+                 overlap: int = 16, patch_batch_size: int = 8, device=None,
+                 tta=False):
         self.device = (resolve_device(device) if device is not None
                        else next(model.parameters()).device)
         self.model = model.to(self.device).eval()
@@ -42,6 +76,12 @@ class SlidingWindowPredictor:
         self.image_shape = tuple(int(s) for s in image_shape)
         self.patch_shape = tuple(int(s) for s in config.patch_shape)
         self.patch_batch_size = int(patch_batch_size)
+        self.tta_mode = normalize_tta_mode(tta)
+        if self.tta_mode == "permute" and len(set(self.patch_shape)) != 1:
+            raise ValueError(
+                f"48-symmetry TTA requires cubic patches, got "
+                f"{self.patch_shape} — use tta 'flips' (the 8-way flip "
+                f"subgroup works for any patch shape)")
 
         corners = compute_patch_indices(self.image_shape, self.patch_shape,
                                         overlap)
@@ -67,8 +107,8 @@ class SlidingWindowPredictor:
         return tuple(slice(c, c + s) for c, s in zip(corner, self.patch_shape))
 
     def _stage_volume(self, data_cdhw) -> torch.Tensor:
-        """(C, D, H, W) host array -> padded (D', H', W', C) device tensor
-        in the model's compute dtype."""
+        """(C, D, H, W) host array or device tensor -> padded (D', H', W', C)
+        device tensor in the model's compute dtype."""
         n_ch = self.config.nb_channels
         if (data_cdhw.ndim != 4 or data_cdhw.shape[0] != n_ch
                 or tuple(data_cdhw.shape[-3:]) != self.image_shape):
@@ -78,8 +118,7 @@ class SlidingWindowPredictor:
                 f"{tuple(data_cdhw.shape)} — rebuild the predictor (or "
                 "resample the case to the training geometry, as "
                 "preprocess_case does)")
-        vol = torch.as_tensor(np.asarray(data_cdhw, np.float32))
-        vol = vol.to(self.model.dtype).to(self.device)
+        vol = stage_to_device(data_cdhw, self.model.dtype, self.device)
         total = [p - i for p, i in zip(self.padded_shape, self.image_shape)]
         pad = []
         for axis in (2, 1, 0):  # F.pad lists the last axis first
@@ -88,9 +127,23 @@ class SlidingWindowPredictor:
         vol = torch.nn.functional.pad(vol, pad)
         return vol.permute(1, 2, 3, 0).contiguous()
 
+    def _apply(self, patches: torch.Tensor) -> torch.Tensor:
+        """(P, d, h, w, C) -> fp32 (P, d, h, w, L), averaged over the TTA
+        group's members when one is set (one forward of the batch each)."""
+        if self.tta_mode is None:
+            return self.model(patches).float()
+        n = TTA_MEMBERS[self.tta_mode]
+        acc = None
+        for i in range(n):
+            y = self.model(tta_member(self.tta_mode, patches, i).contiguous())
+            y = tta_member(self.tta_mode, y.float(), i, inverse=True)
+            acc = y if acc is None else acc + y
+        return acc / n
+
     @torch.inference_mode()
     def predict_probabilities(self, data_cdhw) -> torch.Tensor:
-        """(C, D, H, W) -> fp32 probabilities (L, D, H, W) on the device."""
+        """(C, D, H, W) -> fp32 probabilities (L, D, H, W) on the device;
+        enqueued without a synchronization."""
         vol = self._stage_volume(data_cdhw)
         acc = torch.zeros(self.padded_shape + (self.n_labels,),
                           dtype=torch.float32, device=self.device)
@@ -98,7 +151,7 @@ class SlidingWindowPredictor:
         for start in range(0, len(self.corners), P):
             batch = self.corners[start:start + P]
             patches = torch.stack([vol[self._window(c)] for c in batch])
-            preds = self.model(patches).float() * self.weight_map
+            preds = self._apply(patches) * self.weight_map
             for c, pred in zip(batch, preds):
                 acc[self._window(c)] += pred
         prob = acc / self.weight_sum
@@ -110,22 +163,38 @@ class SlidingWindowPredictor:
         """(C, D, H, W) -> probabilities (L, D, H, W), float32 on the host."""
         return self.predict_probabilities(data_cdhw).cpu().numpy()
 
+    @torch.inference_mode()
+    def predict_labels_async(self, data_cdhw,
+                             threshold: float = 0.5) -> torch.Tensor:
+        """Enqueue the label map of one volume and return it on the device
+        without waiting (``utils/packing.py::device_label_map``); finish
+        with :meth:`unpack_labels`."""
+        return device_label_map(self.predict_probabilities(data_cdhw),
+                                threshold, self.n_labels, self.config.labels)
+
+    def unpack_labels(self, out) -> np.ndarray:
+        """An async label map on the host (the D2H copy waits for it)."""
+        return host_label_map(out, self.n_labels, self.config.labels)
+
     def predict_labels(self, data_cdhw, threshold: float = 0.5) -> np.ndarray:
         """(C, D, H, W) -> label map (D, H, W), computed on the device.
 
         Binary: probability > threshold as uint8 0/1. Multi-class: argmax
         over channels mapped through ``config.labels`` (channel i ->
-        labels[i]), 0 where no channel clears the threshold — the semantics
-        of ``utils/packing.py::device_label_map``."""
-        prob = self.predict_probabilities(data_cdhw)
-        if self.n_labels == 1:
-            return (prob[0] > threshold).to(torch.uint8).cpu().numpy()
-        labels = list(self.config.labels or range(1, self.n_labels + 1))
-        dtype = label_map_dtype(labels)
-        table = torch.tensor(labels, device=prob.device,
-                             dtype=torch.uint8 if dtype == np.uint8
-                             else torch.int64)
-        label_map = table[prob.argmax(dim=0)]
-        label_map = torch.where(prob.amax(dim=0) > threshold, label_map,
-                                torch.zeros_like(label_map))
-        return label_map.cpu().numpy().astype(dtype)
+        labels[i]), 0 where no channel clears the threshold."""
+        return self.unpack_labels(
+            self.predict_labels_async(data_cdhw, threshold))
+
+    @torch.inference_mode()
+    def predict_prob_async(self, data_cdhw,
+                           transfer_dtype: str = "float32") -> torch.Tensor:
+        """Enqueue the probability map of one volume in ``transfer_dtype``
+        (float32, float16 within 4.9e-4, or fixed-point uint8 / uint16
+        within 2.0e-3 / 7.6e-6, ``utils/residency.py``) and return it on the
+        device without waiting; finish with :meth:`unpack_prob`."""
+        return transfer_prob(self.predict_probabilities(data_cdhw),
+                             transfer_dtype)
+
+    def unpack_prob(self, out) -> np.ndarray:
+        """An async probability map as float32 (L, D, H, W) on the host."""
+        return unpack_prob_f32(out)

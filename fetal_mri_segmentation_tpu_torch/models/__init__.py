@@ -13,11 +13,13 @@ __all__ = ["UNet3D", "build_model"]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_model(config, device="cpu") -> UNet3D:
+def build_model(config, device="cuda") -> UNet3D:
     """The configured ``UNet3D`` on ``device``, in eval mode.
 
-    The Hopper kernels take bf16 only: on a CUDA device a float32 config
-    with ``use_pallas_conv`` or ``use_pallas_dec0`` on raises."""
+    The card by default: on a machine without CUDA the default raises
+    (``utils/device.py::resolve_device``); pass ``device="cpu"`` for the
+    CPU. The Hopper kernels take bf16 only: on a CUDA device a float32
+    config with ``use_pallas_conv`` or ``use_pallas_dec0`` on raises."""
     check_supported(config)
     dtype = _DTYPES[config.compute_dtype]
     if torch.device(device).type == "cuda" and dtype != torch.bfloat16:

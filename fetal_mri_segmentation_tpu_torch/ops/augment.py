@@ -166,6 +166,23 @@ def reverse_permute_data(data: torch.Tensor, key_index) -> torch.Tensor:
     return permute_data(data, inverse[index])
 
 
+def permute_volume(x: torch.Tensor, key_index: int) -> torch.Tensor:
+    """The key_index-th cube symmetry of the last three axes of x (any
+    leading axes): :func:`permute_data` as a static axis permutation and
+    flips, for test-time augmentation, where the symmetry is a host integer
+    and an index tensor on the device would cost a host-to-device copy."""
+    axes, rev = _SYMMETRIES[key_index]
+    lead = x.dim() - 3
+    y = x.permute(*range(lead), *(lead + a for a in axes))
+    dims = [lead + a for a in range(3) if rev[a]]
+    return y.flip(dims) if dims else y
+
+
+def reverse_permute_volume(x: torch.Tensor, key_index: int) -> torch.Tensor:
+    """The inverse of :func:`permute_volume` (TTA averaging)."""
+    return permute_volume(x, INVERSE_KEY_INDEX[key_index])
+
+
 def apply_contrast(x: torch.Tensor, scale: torch.Tensor,
                    shift: torch.Tensor) -> torch.Tensor:
     """``x * scale + shift * std(x)`` per example, ``scale`` and ``shift``

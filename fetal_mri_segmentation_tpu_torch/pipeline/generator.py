@@ -22,7 +22,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from fetal_mri_segmentation_tpu.utils.io_utils import pickle_dump, pickle_load
+from fetal_mri_segmentation_tpu_torch.utils.io_utils import (
+    pickle_dump, pickle_load)
 from fetal_mri_segmentation_tpu_torch.ops.patches import (
     compute_patch_indices, get_patch_from_3d_data, get_random_nd_index)
 

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from fetal_mri_segmentation_tpu.utils.io_utils import atomic_json_dump
+from fetal_mri_segmentation_tpu_torch.utils.io_utils import atomic_json_dump
 from fetal_mri_segmentation_tpu_torch.training.state import TrainState
 
 # epoch-level scheduler state, persisted so a resumed run keeps its

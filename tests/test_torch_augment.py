@@ -55,6 +55,26 @@ def test_every_symmetry_matches_jax_and_the_numpy_oracle():
         np.testing.assert_array_equal(back, x)
 
 
+@pytest.mark.parametrize("i", range(48))
+def test_static_symmetry_equals_permute_data(i):
+    """``permute_volume`` (test-time augmentation's static permute and
+    flips) is the same symmetry as ``permute_data`` for every key, with
+    leading axes of any count, and ``reverse_permute_volume`` undoes it."""
+    x, _ = _example(i, shape=(2, 4, 4, 4))
+    xt = torch.from_numpy(x)
+    want = TA.permute_data(xt, i).numpy()
+    np.testing.assert_array_equal(want, JA.permute_data_np(
+        x, JA.PERMUTATION_KEYS[i]))
+    np.testing.assert_array_equal(TA.permute_volume(xt, i).numpy(), want)
+    np.testing.assert_array_equal(
+        TA.permute_volume(xt[None, None], i)[0, 0].numpy(), want)
+    np.testing.assert_array_equal(
+        TA.reverse_permute_volume(torch.from_numpy(want), i).numpy(), x)
+    np.testing.assert_array_equal(
+        TA.reverse_permute_volume(torch.from_numpy(want), i).numpy(),
+        TA.reverse_permute_data(torch.from_numpy(want), i).numpy())
+
+
 def test_batched_permutation_takes_one_symmetry_per_example():
     rng = np.random.default_rng(1)
     x = rng.normal(size=(6, 1, 4, 4, 4)).astype(np.float32)

@@ -1,6 +1,8 @@
 """The port runs where there is no JAX stack: in a subprocess whose import
-system refuses jax, jaxlib, flax, optax, orbax and h5py, every port module
-imports, a tiny bf16 predict runs on the CPU through the kernel routes and
+system refuses jax, jaxlib, flax, optax, orbax, h5py and the JAX package
+itself, every port module imports, a tiny bf16 predict runs on the CPU
+through the kernel routes, a direct predict with flips TTA, a
+``DevicePreprocessor`` and one ``serve --once`` sweep run, and
 ``train_model`` trains two epochs from an in-memory data file;
 ``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone."""
@@ -21,7 +23,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = r'''
 import importlib, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py"}
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py",
+           "fetal_mri_segmentation_tpu"}
 
 
 class Refuse:
@@ -69,9 +72,45 @@ except RuntimeError as e:
 else:
     raise AssertionError("device='cuda' did not raise")
 
+# serving: a direct predict with flips TTA, the device preprocessor and
+# one watch-directory sweep through the serve entry point
+import os, tempfile
+from fetal_mri_segmentation_tpu_torch import serve
+from fetal_mri_segmentation_tpu_torch.inference.predict import (
+    make_device_preprocessor)
+from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+    make_direct_predictor)
+from fetal_mri_segmentation_tpu_torch.utils.nifti import save_nifti
+from fetal_mri_segmentation_tpu_torch.utils.params import init_flax_like
+
+model = build_model(cfg, "cpu")
+direct = make_direct_predictor(model, cfg, tta="flips", device="cpu")
+prob = direct(x)
+assert prob.shape == (1, 12, 12, 12) and np.isfinite(prob).all()
+pre = make_device_preprocessor(model, cfg)
+vol = np.random.default_rng(2).normal(100, 20, (14, 10, 13)).astype(
+    np.float32)
+staged = pre([vol])
+assert staged.shape == (1, 12, 12, 12) and staged.dtype == torch.bfloat16
+work = tempfile.mkdtemp()
+watch = os.path.join(work, "watch")
+for i in range(2):
+    os.makedirs(os.path.join(watch, f"case_{i}"))
+    save_nifti(vol + i, os.path.join(watch, f"case_{i}", "volume.nii.gz"),
+               affine=np.diag([1.0, 1.2, 0.9, 1.0]))
+np.savez(os.path.join(work, "params.npz"), **init_flax_like(cfg, seed=0))
+stats = os.path.join(work, "stats.json")
+n = serve.main(cfg, os.path.join(work, "params.npz"), watch,
+               output=os.path.join(work, "served"), overlap=2, once=True,
+               direct=True, tta="flips", device_preprocess=True,
+               stats_file=stats, device="cpu", verbose=False)
+assert n == 2, n
+assert os.path.exists(os.path.join(work, "served", "case_1",
+                                   "prediction.nii.gz"))
+assert conv3x3.conv3x3_flat.launches == 0
+
 # training: two epochs of train_model with augmentation on an in-memory
 # data file, through the kernel routes, a checkpoint and its reload
-import os, tempfile
 from fetal_mri_segmentation_tpu_torch.data.memory import InMemoryDataFile
 from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
     get_training_and_validation_generators)

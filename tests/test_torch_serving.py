@@ -117,10 +117,10 @@ def test_multiclass_label_map_semantics():
 def test_refusals(served):
     cfg, _, _, npz, _ = served
     model = load_serving_model(cfg, npz, "cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_serving_predictor(model, cfg, direct=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_serving_predictor(model, cfg, tta="flips")
+    with pytest.raises(ValueError, match="CUBIC"):
+        build_serving_predictor(model, cfg, direct=True, tta="permute")
+    with pytest.raises(ValueError, match="TTA mode"):
+        build_serving_predictor(model, cfg, tta="rotate")
     pred = build_serving_predictor(model, cfg, overlap=OVERLAP)
     with pytest.raises(ValueError, match="image_shape"):
         pred(np.zeros((1, 8, 8, 8), np.float32))

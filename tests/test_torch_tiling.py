@@ -100,9 +100,20 @@ def _rows(plan, origin, valid_extent):
             yield r, v
 
 
+def _replayed(fine_extent):
+    """Replayed with tensors: outputs up to 64^3 per example. The whole
+    128^3 volumes of the direct predictor get the plan-only checks."""
+    return int(np.prod(fine_extent)) <= 64 ** 3
+
+
 CONV_CASES = [pytest.param(s, id=f"{s[0]}-{s[1]}")
-              for s in chip_smoke.CONV_SHAPES]
-DEC_CASES = [pytest.param(s, id=s[0]) for s in chip_smoke.DEC_SHAPES]
+              for s in chip_smoke.CONV_SHAPES if _replayed(s[3:6])]
+DEC_CASES = [pytest.param(s, id=s[0]) for s in chip_smoke.DEC_SHAPES
+             if _replayed([2 * v for v in s[2:5]])]
+CONV_PLAN_CASES = [pytest.param(s, id=f"{s[0]}-{s[1]}")
+                   for s in chip_smoke.CONV_SHAPES if not _replayed(s[3:6])]
+DEC_PLAN_CASES = [pytest.param(s, id=s[0]) for s in chip_smoke.DEC_SHAPES
+                  if not _replayed([2 * v for v in s[2:5]])]
 
 
 @pytest.mark.parametrize("case", CONV_CASES)
@@ -195,6 +206,81 @@ def test_dec0_tile_plan_replays_to_the_reference(case):
                     written[(b,) + f + (slice(n0, n0 + y.shape[1]),)] += 1
     if len(tiles) == plan.m_tiles // B * kb:
         assert bool((written == 1).all()), "an output written twice or never"
+
+
+def _map_end(tmap):
+    """One past the last byte a tensor map addresses, from its origin."""
+    return tmap.offset + sum((d - 1) * st for d, st in zip(
+        tmap.dims, tmap.strides)) + tiling.ELEM
+
+
+def _plan_integers_fit(plan, sizes, n_iters, coords):
+    """The plan's integers fit the kernel's types: the ConvGeom / Dec0Geom
+    fields and every tile index are C ints, each tensor map addresses
+    exactly its operand's bytes, and the last tile's first and last K steps
+    load inside the operand (one voxel of TMA zero fill at most)."""
+    assert all(type(v) is int and 0 <= v < 2 ** 31 for v in plan.geom)
+    assert plan.total_tiles < 2 ** 31
+    for operand, size in sizes.items():
+        ends = [_map_end(m) for m in plan.maps if m.operand == operand]
+        assert max(ends) == size and all(e <= size for e in ends), operand
+    for it in (0, n_iters - 1):
+        for index, c in coords(it):
+            tmap = plan.maps[index]
+            assert all(-1 <= v <= d for v, d in zip(c, tmap.dims)), (
+                tmap.operand, c, tmap.dims)
+
+
+@pytest.mark.parametrize("case", CONV_PLAN_CASES)
+def test_conv_plan_of_a_whole_volume_fits_its_integers(case):
+    """The direct predictor's 128^3 layers at batch 1 and the TTA chunks
+    of 2 and 8: 8 x 128^3 x 64 bf16 is 2^31 bytes (the epilogue's output
+    offsets, ``csrc/conv3x3.cu::row_offset``, are 64-bit), while every
+    other integer of the plan stays a C int."""
+    _, layer, B, D, H, W, ci, co = case
+    plan = conv_ops.tile_plan(B, D, H, W, ci, co)
+    last = tiling.tile_origin(plan.m_tiles - 1, plan.box, plan.tiles)
+    assert last[0] == B - 1
+    n0 = (plan.n_tiles - 1) * plan.bn
+
+    def coords(it):
+        xc, wc = conv_ops.load_coords(plan, it, *last, n0)
+        return ((0, xc), (1, wc))
+
+    _plan_integers_fit(plan, {"x": B * D * H * W * ci * tiling.ELEM,
+                              "w": co * 27 * ci * tiling.ELEM},
+                       27 * plan.chunks, coords)
+    # the last output row's offset in elements, as the kernel computes it
+    b, d0, h0, w0 = last
+    td, th, tw = tiling.row_voxel(plan.bm - 1, plan.box)
+    top = (((b * D + d0 + td) * H + h0 + th) * W + w0 + tw) * co
+    assert top + co == B * D * H * W * co
+    # the TTA chunk of 8 spans 2^31 bytes: past a signed 32-bit byte count
+    assert (B * D * H * W * co * tiling.ELEM >= 2 ** 31) == (B == 8)
+
+
+@pytest.mark.parametrize("case", DEC_PLAN_CASES)
+def test_dec0_plan_of_a_whole_volume_fits_its_integers(case):
+    """The fused decoder level at a coarse 64^3 (a fine 128^3 output) at
+    batches 1, 2 and 8: the same integer limits, with the fine output's
+    offsets (``csrc/dec0.cu::row_offset``) in 64 bits."""
+    _, B, dc, hc, wc, cu, cs, co = case
+    plan = dec_ops.tile_plan(B, dc, hc, wc, cu, cs, co)
+    last = tiling.tile_origin(plan.m_tiles - 1, plan.box, plan.tiles)
+    assert last[0] == B - 1
+    n0 = (plan.n_tiles - 1) * plan.bn
+
+    def coords(it):
+        return dec_ops.load_coords(plan, it, 7, *last, n0)
+
+    e = tiling.ELEM
+    _plan_integers_fit(plan, {"xd": B * dc * hc * wc * cu * e,
+                              "w_up": 8 * co * 8 * cu * e,
+                              "w_skip": co * 27 * cs * e,
+                              "skip": B * 8 * dc * hc * wc * cs * e},
+                       plan.n_iters, coords)
+    fine = B * 8 * dc * hc * wc * co
+    assert (fine * e >= 2 ** 31) == (B == 8)
 
 
 @pytest.mark.parametrize("extent,voxels,box", [
