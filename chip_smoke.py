@@ -41,7 +41,22 @@ Phases, one line each (or one line per checked shape):
    ``prob_map`` (float32 and uint8) on one; ``serve.main`` with ``once``
    and a stats file on a watch directory of the three cases. Every counted
    run's launches must be its forwards' worth exactly; each path prints
-   its seconds per case with the kernels and without.
+   its seconds per case with the kernels and without;
+7. isensee: ``configs/fetal_isensee.json`` (Isensee2017, depth 5, 16 base
+   filters, InstanceNorm + LeakyReLU blocks, dropout 0.3, 3 deep-supervision
+   heads) with random weights from a seed. Each of its kernel shapes with
+   activation "none" at the serving batch 8, the train batch 6, the
+   validation batch 12 and the direct 128^3 volume at batch 1 (bound,
+   plain and cuDNN times, share of the bound); the sliding window and the direct predictor on the three
+   cases against the switches off, ``predict.main`` and ``serve.main
+   --once --direct --device-preprocess``; one train step's gradients on
+   against off from the same weights, batch and dropout masks, the step's
+   times and peak memory on and off; ``train_model`` for two epochs (the
+   loss falls, the checkpoint reloads bit for bit); and one batch-8 forward
+   of the U-Net with InstanceNorm against the switches off, where the
+   fused-decoder kernel runs with activation "none" before the norm. Every
+   counted run's launches are exact: 6 / 8 / 0 per serving forward, 8 /
+   10 / 0 per training forward, 6 / 4 / 3 for the U-Net.
 
 The kernel phase also checks every kernel layer of the direct 128^3
 forward at batch 1 and at the TTA chunks of 2 and 8, and prints each
@@ -88,6 +103,18 @@ PROB_TOL = 2e-2
 # misrouted gradient (relative error 1). The loss is a ratio of sums over
 # 1.5M voxels, where those roundings average out.
 GRAD_REL_TOL, LOSS_TOL = 5e-2, 1e-3
+# Probabilities of a model with a norm after every conv (Isensee2017, the
+# U-Net with InstanceNorm), kernels on against off. Each of Isensee's 23
+# conv blocks ends in an fp32 InstanceNorm that scales every channel back to unit
+# variance, so the one-bf16-ulp (2^-8) difference in where the two routes
+# round a conv's output is not damped with depth as in the U-Net, and with
+# random weights the summed heads leave most voxels near p = 0.5, where the
+# sigmoid is steepest. Measured on the H100 (NVIDIA H100 80GB HBM3, 700 W):
+# max|p_on - p_off| 0.0185 (sliding window) and 0.0227 (direct) over the
+# three cases, every flipped label within 0.02 of 0.5; 5e-2 is twice the
+# worst. Both paths are also held to an fp32 model on the same weights: the
+# kernel route may be no further from it than twice the cuDNN path is.
+NORM_PROB_TOL = 5e-2
 # The published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at
 # the full 700 W power limit): bf16 tensor cores and HBM3. A kernel's bound
 # is the larger of its operations and its bytes over these.
@@ -157,6 +184,41 @@ DEC_SHAPES += [(f"{tag} {layer}", b, 2 * d, 2 * h, 2 * w, *rest)
 # the slice's blocks use relu; the extra shapes cover the other activations
 ACTIVATION = {"non-cubic": "none", "ragged": "leaky_relu",
               "ragged-K": "leaky_relu", "ragged-N": "none"}
+# Isensee2017 of configs/fetal_isensee.json (depth 5, 16 base filters) on
+# 64^3 patches: (entry, layer, extent, C_in, C_out, launches per serving
+# forward, per training forward) of each kernel shape. Every block is conv
+# -> InstanceNorm -> LeakyReLU, so the kernels run with activation "none"
+# and the norm follows in fp32. In training the up-sampling module is
+# upsample-then-conv, at the shape of its level's loc1 (a second launch
+# there); in eval it is the fused form with no skip, which the fused-decoder
+# kernel does not take (a plain op, as in the JAX package). The stem, the
+# stride-2 entries and the 1^3 blocks and heads stay on F.conv3d.
+ISENSEE_LAYERS = [
+    ("conv3x3_flat", "enc0_ctx", 64, 16, 16, 2, 2),
+    ("conv3x3_flat", "enc1_ctx", 32, 32, 32, 2, 2),
+    ("conv3x3_flat", "enc2_ctx", 16, 64, 64, 2, 2),
+    ("conv3x3", "enc3_ctx", 8, 128, 128, 2, 2),
+    ("conv3x3", "enc4_ctx", 4, 256, 256, 2, 2),
+    ("conv3x3", "dec3_loc1", 8, 256, 128, 1, 2),
+    ("conv3x3", "dec2_loc1", 16, 128, 64, 1, 2),
+    ("conv3x3_flat", "dec1_loc1", 32, 64, 32, 1, 2),
+    ("conv3x3_flat", "dec0_loc1", 64, 32, 16, 1, 2),
+]
+ISENSEE_PER_FORWARD, ISENSEE_PER_TRAIN = (
+    {entry: sum(row[col] for row in ISENSEE_LAYERS if row[0] == entry)
+     for entry in ("conv3x3", "conv3x3_flat")} for col in (5, 6))
+ISENSEE_PER_FORWARD["up_concat_conv3x3_kernel"] = 0
+ISENSEE_PER_TRAIN["up_concat_conv3x3_kernel"] = 0
+# every shape at the serving batch (summed per forward), the train step's
+# batch, the eval step's (validation_batch_size) and the direct predictor's
+# whole 128^3 volume at batch 1
+ISENSEE_BATCHES = (("serve", B, 1), ("train", 6, 1), ("val", 12, 1),
+                   ("direct", 1, 2))
+ISENSEE_SHAPES = [(entry, f"{tag} isensee {layer}", b, s * n, s * n, s * n,
+                   ci, co)
+                  for tag, b, s in ISENSEE_BATCHES
+                  for entry, layer, n, ci, co, *_ in ISENSEE_LAYERS]
+ACTIVATION.update({shape[1]: "none" for shape in ISENSEE_SHAPES})
 KERNELS = {
     "conv3x3": ("fetal_mri_segmentation_tpu_torch/csrc/conv3x3.cu",
                 "fetal_mri_segmentation_tpu/ops/pallas_conv.py:43"),
@@ -192,9 +254,11 @@ def bound_ms(flop: float, nbytes: float):
     return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
-def check(label, out, ref, stats, entry, is_slice, times, flop, nbytes):
+def check(label, out, ref, stats, entry, weight, times, flop, nbytes):
     """Hold one kernel call against its plain version and record its times
-    (``times``: ms, plain_ms, prep_ms and library_ms or None)."""
+    (``times``: ms, plain_ms, prep_ms and library_ms or None), added to the
+    entry's sums ``weight`` times (the shape's launches per forward; 0
+    leaves it out of the sums)."""
     err = (out.float() - ref).abs().max().item()
     scale = ref.abs().max().item()
     tol = REL_TOL * scale + ABS_TOL
@@ -214,21 +278,73 @@ def check(label, out, ref, stats, entry, is_slice, times, flop, nbytes):
                                  "library_ms": None, "prep": 0.0,
                                  "ops_ms": 0.0, "bytes_ms": 0.0})
     s["max_abs_err"] = max(s["max_abs_err"], err)
-    if is_slice:
-        s["ms"] += times["ms"]
-        s["plain_ms"] += times["plain_ms"]
-        s["prep"] += times["prep_ms"]
-        s["bound_ms"] += bound
-        s["ops_ms"] += flop / PEAK_BF16_FLOPS * 1e3
-        s["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+    if weight:
+        s["ms"] += weight * times["ms"]
+        s["plain_ms"] += weight * times["plain_ms"]
+        s["prep"] += weight * times["prep_ms"]
+        s["bound_ms"] += weight * bound
+        s["ops_ms"] += weight * flop / PEAK_BF16_FLOPS * 1e3
+        s["bytes_ms"] += weight * nbytes / HBM_BYTES_PER_S * 1e3
         if lib is not None:
-            s["library_ms"] = (s["library_ms"] or 0.0) + lib
+            s["library_ms"] = (s["library_ms"] or 0.0) + weight * lib
 
 
-def kernel_phase(torch, stats) -> None:
+def conv_case(torch, gen, stats, weight, entry, layer, b, d, h, w, ci,
+              co) -> None:
+    """One conv kernel shape against its plain version, with the kernel's,
+    the plain version's and one cuDNN convolution's times."""
     import torch.nn.functional as F
 
     from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+
+    def normal(*shape, std=1.0):
+        x = torch.randn(*shape, device="cuda", generator=gen) * std
+        return x.to(torch.bfloat16)
+
+    x = normal(b, d, h, w, ci)
+    wt = normal(3, 3, 3, ci, co, std=(27 * ci) ** -0.5)
+    bias = torch.randn(co, device="cuda", generator=gen) * 0.1
+    op = getattr(conv_ops, entry)
+    act = (ACTIVATION.get(layer, "relu"), 0.3)
+    out = op(x, wt, bias, *act)
+    torch.cuda.synchronize()
+    ref = conv_ops.conv3x3_reference(x.float(), wt.float(), bias, *act)
+    # the library yardstick: one cuDNN convolution with its bias (no
+    # activation), on a channels-last view and weight prepared here
+    x_lib = x.permute(0, 4, 1, 2, 3)
+    w_lib = wt.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    b_lib = bias.to(torch.bfloat16)
+    times = {
+        # the K-major weight is made at the first call and kept with wt
+        "ms": time_ms(torch, lambda: op(x, wt, bias, *act)),
+        "plain_ms": time_ms(torch, lambda: conv_ops.conv3x3_reference(
+            x, wt, bias, *act)),
+        "library_ms": time_ms(torch, lambda: F.conv3d(
+            x_lib, w_lib, b_lib, padding=1)),
+        "prep_ms": time_ms(torch, lambda: wt.permute(
+            4, 0, 1, 2, 3).contiguous())}
+    check(f"{layer} {(b, d, h, w)} {ci}->{co} {act[0]}", out, ref, stats,
+          entry, weight, times, 2 * b * d * h * w * 27 * ci * co,
+          2 * (x.numel() + wt.numel() + out.numel()) + 4 * co)
+
+
+def summarize(stats, title: str) -> None:
+    """Print each entry's sums and record which bound they meet."""
+    for entry, s in stats.items():
+        ops, mem = s.pop("ops_ms"), s.pop("bytes_ms")
+        s["bound_by"] = "operations" if ops >= mem else "bytes"
+        lib = s["library_ms"]
+        print(f"{title} sum {entry}: kernel {s['ms']:.6g} ms (+ one-off "
+              f"weight preparation {s.pop('prep'):.6g} ms) against plain "
+              f"{s['plain_ms']:.6g} ms, library "
+              f"{'none' if lib is None else f'{lib:.6g} ms'}, bound "
+              f"{s['bound_ms']:.6g} ms ({s['bound_by']}; operations term "
+              f"{ops:.6g} ms, bytes term {mem:.6g} ms), "
+              f"{s['bound_ms'] / s['ms']:.4f} of the bound", flush=True)
+
+
+def kernel_phase(torch, stats) -> None:
     from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -237,35 +353,9 @@ def kernel_phase(torch, stats) -> None:
         x = torch.randn(*shape, device="cuda", generator=gen) * std
         return x.to(torch.bfloat16)
 
-    for entry, layer, b, d, h, w, ci, co in CONV_SHAPES:
-        x = normal(b, d, h, w, ci)
-        wt = normal(3, 3, 3, ci, co, std=(27 * ci) ** -0.5)
-        bias = torch.randn(co, device="cuda", generator=gen) * 0.1
-        op = getattr(conv_ops, entry)
-        act = (ACTIVATION.get(layer, "relu"), 0.3)
-        out = op(x, wt, bias, *act)
-        torch.cuda.synchronize()
-        ref = conv_ops.conv3x3_reference(x.float(), wt.float(), bias, *act)
-        # the library yardstick: one cuDNN convolution with its bias (no
-        # activation), on a channels-last view and weight prepared here
-        x_lib = x.permute(0, 4, 1, 2, 3)
-        w_lib = wt.permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        b_lib = bias.to(torch.bfloat16)
-        times = {
-            # the K-major weight is made at the first call and kept with wt
-            "ms": time_ms(torch, lambda: op(x, wt, bias, *act)),
-            "plain_ms": time_ms(torch, lambda: conv_ops.conv3x3_reference(
-                x, wt, bias, *act)),
-            "library_ms": time_ms(torch, lambda: F.conv3d(
-                x_lib, w_lib, b_lib, padding=1)),
-            "prep_ms": time_ms(torch, lambda: wt.permute(
-                4, 0, 1, 2, 3).contiguous())}
-        check(f"{layer} {(b, d, h, w)} {ci}->{co} {act[0]}", out, ref, stats,
-              entry, layer[:3] in SLICE_LAYERS, times,
-              2 * b * d * h * w * 27 * ci * co,
-              2 * (x.numel() + wt.numel() + out.numel()) + 4 * co)
-        del x, wt, out, ref, x_lib, w_lib
+    for entry, layer, *shape in CONV_SHAPES:
+        conv_case(torch, gen, stats, int(layer[:3] in SLICE_LAYERS), entry,
+                  layer, *shape)
 
     entry = "up_concat_conv3x3_kernel"
     for layer, b, d, h, w, cu, cs, co in DEC_SHAPES:
@@ -290,21 +380,12 @@ def kernel_phase(torch, stats) -> None:
             "library_ms": None,
             "prep_ms": time_ms(torch, lambda: dec_ops.kernel_weights(k, cu))}
         check(f"{layer} {(b, d, h, w)} {cu}+{cs}->{co} {act[0]}", out, ref,
-              stats, entry, layer[:3] in SLICE_LAYERS, times,
+              stats, entry, int(layer[:3] in SLICE_LAYERS), times,
               2 * b * 8 * d * h * w * (8 * cu + 27 * cs) * co,
               2 * (xd.numel() + skip.numel() + k.numel() + out.numel())
               + 4 * co)
         del xd, skip, k, out, ref
-    for entry, s in stats.items():
-        ops, mem = s.pop("ops_ms"), s.pop("bytes_ms")
-        s["bound_by"] = "operations" if ops >= mem else "bytes"
-        lib = s["library_ms"]
-        print(f"slice sum {entry}: kernel {s['ms']:.6g} ms (+ one-off weight "
-              f"preparation {s.pop('prep'):.6g} ms) against plain "
-              f"{s['plain_ms']:.6g} ms, library "
-              f"{'none' if lib is None else f'{lib:.6g} ms'}, bound "
-              f"{s['bound_ms']:.6g} ms ({s['bound_by']}; operations term "
-              f"{ops:.6g} ms, bytes term {mem:.6g} ms)", flush=True)
+    summarize(stats, "slice")
 
 
 def wgmma_check(lib_path: Path) -> str:
@@ -949,6 +1030,381 @@ def serve_phase(torch, work: Path) -> dict:
     return launches
 
 
+def isensee_phase(torch, work: Path) -> dict:
+    """Isensee2017 (configs/fetal_isensee.json) on the card, and the U-Net
+    with InstanceNorm: the kernels at the Isensee shapes with activation
+    "none", serving (sliding window and direct, ``predict`` and ``serve``),
+    one train step's gradients and times, ``train_model``, and one U-Net
+    forward that takes the fused-decoder kernel before a norm. Returns the
+    launches of each counted run and the kernels' sums over one serving
+    forward."""
+    import csv
+    import dataclasses
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch import predict as entry
+    from fetal_mri_segmentation_tpu_torch import serve
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.data.memory import InMemoryDataFile
+    from fetal_mri_segmentation_tpu_torch.inference.predict import (
+        build_serving_predictor, load_serving_model, preprocess_case)
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        get_training_and_validation_generators)
+    from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
+        CheckpointIO)
+    from fetal_mri_segmentation_tpu_torch.training.loop import train_model
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        _forward, get_loss_fn, make_train_step)
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    # the kernels at every Isensee shape, summed over one serving forward
+    kernel_stats = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for entry_name, layer, *shape in ISENSEE_SHAPES:
+        weight = 0
+        if layer.startswith("serve "):
+            weight = next(row[5] for row in ISENSEE_LAYERS
+                          if layer.endswith(" " + row[1]))
+        conv_case(torch, gen, kernel_stats, weight, entry_name, layer,
+                  *shape)
+    summarize(kernel_stats, "isensee serving forward")
+
+    config = Config.load(str(ROOT / "configs" / "fetal_isensee.json"))
+    config.use_pallas_conv = True
+    config.use_pallas_dec0 = True
+    config_off = dataclasses.replace(config, use_pallas_conv=False,
+                                     use_pallas_dec0=False)
+    overlap = config.validation_patch_overlap
+    params = work / "params.npz"
+    np.savez(params, **init_flax_like(config, seed=0))
+    inputs = write_cases(work / "cases")
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+    launches = {}
+
+    def counted(label, want, run):
+        """``run()`` with the counts set to 0 just before and read just
+        after; they must be ``want`` exactly."""
+        for fn in counters:
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {fn.__name__: fn.launches for fn in counters}
+        if got != want:
+            raise AssertionError(f"isensee {label}: launches {got}, not "
+                                 f"{want}")
+        launches[label] = got
+        return out
+
+    def forwards(n, table=ISENSEE_PER_FORWARD):
+        return {k: v * n for k, v in table.items()}
+
+    def timed(fn, n=1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n
+
+    # serving: the sliding window (27 patches in 4 batches of 8) and the
+    # direct predictor on the three host-preprocessed cases, kernels on
+    # against off, both against an fp32 model (no TF32) on the same weights
+    torch.backends.cudnn.allow_tf32 = False
+    models = {"on": load_serving_model(config, str(params), "cuda"),
+              "off": load_serving_model(config_off, str(params), "cuda"),
+              "fp32": load_serving_model(dataclasses.replace(
+                  config_off, compute_dtype="float32"), str(params), "cuda")}
+    cases = [preprocess_case(path, config)[0] for path in inputs]
+    for label, kw, n in (("sliding", {}, 4), ("direct", {"direct": True}, 1)):
+        pred = {name: build_serving_predictor(
+            model, config if name == "on" else config_off, overlap=overlap,
+            device="cuda", **kw) for name, model in models.items()}
+        diff, mean, to32, flips, far = 0.0, 0.0, {"on": 0.0, "off": 0.0}, 0, 0
+        for data in cases:
+            p_on = counted(label, forwards(n),
+                           lambda: pred["on"].predict_probabilities(data))
+            p_off = pred["off"].predict_probabilities(data)
+            p32 = pred["fp32"].predict_probabilities(data)
+            if p_on.shape != (config.n_labels,) + tuple(config.image_shape):
+                raise AssertionError(f"isensee {label}: shape "
+                                     f"{tuple(p_on.shape)}")
+            if not bool(torch.isfinite(p_on).all()):
+                raise AssertionError(f"isensee {label}: non-finite")
+            diff = max(diff, (p_on - p_off).abs().max().item())
+            mean = max(mean, (p_on - p_off).abs().mean().item())
+            for name, p in (("on", p_on), ("off", p_off)):
+                to32[name] = max(to32[name], (p - p32).abs().max().item())
+            flip = (p_on[0] > 0.5) != (p_off[0] > 0.5)
+            flips += int(flip.sum().item())
+            far += int((flip & ((p_off[0] - 0.5).abs() >= NORM_PROB_TOL)
+                        ).sum().item())
+        on_s = timed(lambda: pred["on"].predict_labels(cases[0]), 3)
+        off_s = timed(lambda: pred["off"].predict_labels(cases[0]), 3)
+        print(f"isensee {label}: {len(cases)} cases, max|p_on - p_off| "
+              f"{diff:.6g} <= tol {NORM_PROB_TOL} (largest per-case mean "
+              f"{mean:.6g}); against the fp32 model max|p_on - p32| "
+              f"{to32['on']:.6g}, max|p_off - p32| {to32['off']:.6g}; label "
+              f"flips {flips}, {far} with |p - 0.5| >= tol; {on_s:.4f} s per "
+              f"case with kernels, {off_s:.4f} s without (3 warm label-map "
+              f"runs); launches per case {launches[label]}", flush=True)
+        if not diff <= NORM_PROB_TOL or far:
+            raise AssertionError(f"isensee {label}: kernels on against off "
+                                 f"{diff}, {far} far flips")
+        if not to32["on"] <= 2 * to32["off"]:
+            raise AssertionError(f"isensee {label}: kernels {to32['on']} "
+                                 f"from fp32, cuDNN {to32['off']}")
+        del pred
+    del models
+    torch.cuda.empty_cache()
+
+    # the entry points: predict (sliding window) and serve --once (direct,
+    # device preprocessing) on the three cases
+    t = time.perf_counter()
+    n = counted("predict", forwards(4 * len(inputs)), lambda: entry.main(
+        config, str(params), inputs, output_dir=str(work / "predicted"),
+        device="cuda", verbose=False))
+    predict_s = (time.perf_counter() - t) / len(inputs)
+    t = time.perf_counter()
+    served = counted("serve --once --direct", forwards(len(inputs)),
+                     lambda: serve.main(
+                         config, str(params), str(work / "cases"),
+                         output=str(work / "served"), once=True, direct=True,
+                         device_preprocess=True, device="cuda",
+                         verbose=False))
+    serve_s = (time.perf_counter() - t) / len(inputs)
+    for out_dir in ("predicted", "served"):
+        for path in inputs:
+            label = load_nifti(str(work / out_dir / Path(path).name
+                                   / "prediction.nii.gz")).get_fdata()
+            if label.shape != tuple(config.image_shape) or not set(
+                    np.unique(label)) <= {0.0, 1.0}:
+                raise AssertionError(f"isensee {out_dir}: {label.shape}")
+    print(f"isensee predict: {n} cases, {predict_s:.4f} s per case; serve "
+          f"--once --direct --device-preprocess: {served} cases, "
+          f"{serve_s:.4f} s per case (model builds included)", flush=True)
+    if n != len(inputs) or served != len(inputs):
+        raise AssertionError(f"isensee: predicted {n}, served {served}")
+
+    # training: one step's gradients with the kernels on against off, from
+    # the same weights, batch and dropout masks (the step's generator seeded
+    # alike, no augmentation); cuDNN with PyTorch's default TF32, as in the
+    # train phase
+    torch.backends.cudnn.allow_tf32 = True
+    weights = from_flax(init_flax_like(config, seed=0))
+
+    def fresh(cfg):
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(weights)
+        return model, create_train_state(model, cfg)
+
+    x_np, y_np = train_batch(config)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    grads, losses = {}, {}
+    config_32 = dataclasses.replace(config_off, compute_dtype="float32")
+    for name, cfg in (("on", config), ("off", config_off),
+                      ("fp32", config_32)):
+        cfg = dataclasses.replace(cfg, augment=False)
+        model, state = fresh(cfg)
+        step = make_train_step(
+            model, cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+        want = (forwards(1, ISENSEE_PER_TRAIN) if name == "on"
+                else dict.fromkeys(ISENSEE_PER_TRAIN, 0))
+        # the fp32 reference in fp32 throughout (no TF32 in cuDNN)
+        torch.backends.cudnn.allow_tf32 = name != "fp32"
+        metrics = counted(f"train step {name}", want,
+                          lambda: step(state, x, y))
+        torch.backends.cudnn.allow_tf32 = True
+        losses[name] = float(metrics["loss"])
+        grads[name] = {n: p.grad.float().clone()
+                       for n, p in model.named_parameters()}
+        # a conv bias before a norm: the norm takes away any per-channel
+        # constant, so its gradient is 0 up to rounding
+        before_norm = {f"{n}.conv.bias" for n, m in model.named_modules()
+                       if isinstance(m, ConvBlock) and m.norm_key}
+        del model, state, step
+
+    def rel(a, b, scale=None):
+        return ((a - b).norm() / (b if scale is None else scale).norm()
+                ).item()
+
+    # each gradient of the kernel route is held to the fp32 model's: within
+    # GRAD_REL_TOL of it, or no further from it than twice the cuDNN bf16
+    # path is (InstanceNorm over the 64 voxels of a 4^3 sample amplifies
+    # the bf16 forward's rounding in the deepest level's gradients)
+    worst, worst_bias, on_off, zero = (None, 0.0), (None, 0.0), (None, 0.0), []
+    for n, g32 in grads["fp32"].items():
+        g_on, g_off = grads["on"][n], grads["off"][n]
+        if n in before_norm:
+            # held to the scale of its block's weight gradient
+            scale = grads["fp32"][n[:-len("bias")] + "weight"]
+            r = max(rel(g_on, g32, scale), rel(g_off, g32, scale))
+            if not r <= worst_bias[1]:
+                worst_bias = (n, r)
+            continue
+        if not bool((g_on != 0).any()):
+            zero.append(n)
+        r_on, r_off = rel(g_on, g32), rel(g_off, g32)
+        margin = r_on / max(2 * r_off, GRAD_REL_TOL)
+        if worst[0] is None or not margin <= worst[1][0]:
+            worst = (n, (margin, r_on, r_off))
+        if not rel(g_on, g_off) <= on_off[1]:
+            on_off = (n, rel(g_on, g_off))
+    n, (margin, r_on, r_off) = worst
+    print(f"isensee train grad check: {len(grads['on'])} parameter tensors "
+          f"against the fp32 model's; worst {n}: relative L2 {r_on:.6g} "
+          f"with kernels, {r_off:.6g} without (bound max(2 x {r_off:.6g}, "
+          f"{GRAD_REL_TOL})); kernels on against off at most "
+          f"{on_off[1]:.6g} ({on_off[0]}); the {len(before_norm)} conv "
+          f"biases before a norm within {worst_bias[1]:.6g} "
+          f"({worst_bias[0]}) of their weight gradient's norm <= tol "
+          f"{GRAD_REL_TOL}; loss {losses['on']:.6g} with kernels, "
+          f"{losses['off']:.6g} without, {losses['fp32']:.6g} in fp32 (|on - "
+          f"off| {abs(losses['on'] - losses['off']):.6g} <= tol {LOSS_TOL});"
+          f" launches {launches['train step on']}", flush=True)
+    if zero:
+        raise AssertionError(f"zero gradient with the kernels on: {zero}")
+    if not (margin <= 1 and worst_bias[1] <= GRAD_REL_TOL):
+        raise AssertionError(f"isensee gradients: {worst}, {worst_bias}")
+    if not abs(losses["on"] - losses["off"]) <= LOSS_TOL:
+        raise AssertionError(f"loss {losses['on']} against {losses['off']}")
+    del grads
+
+    # time and memory of the full step (augmentation and dropout on), and
+    # its parts (forward + loss with the step's dropout masks)
+    step_ms = {}
+    for label, cfg in (("on", config), ("off", config_off)):
+        model, state = fresh(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = make_train_step(model, cfg, generator=gen)
+        loss_fn = get_loss_fn(cfg)
+        step(state, x, y)  # makes the gradients and Adam's moments
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step_ms[label] = time_ms(torch, lambda: step(state, x, y))
+        peak = torch.cuda.max_memory_allocated()
+        masks = model.dropout_masks(x.shape[0], gen)
+
+        def forward():
+            return loss_fn(y, _forward(model, x, masks))
+
+        fwd_ms = time_ms(torch, forward)
+        fwd_bwd_ms = time_ms(torch, lambda: forward().backward())
+        print(f"isensee train step kernels {label}: {step_ms[label]:.6g} ms "
+              f"per step of {cfg.batch_size}x{tuple(cfg.patch_shape)} "
+              f"(augmentation, dropout, forward, loss, backward, Adam); "
+              f"forward + loss {fwd_ms:.6g} ms, + backward {fwd_bwd_ms:.6g} "
+              f"ms (backward {(fwd_bwd_ms - fwd_ms) / step_ms[label]:.4f} "
+              f"of the step); peak memory {peak / 2**30:.6g} GiB "
+              f"({(peak - base) / 2**30:.6g} GiB above the "
+              f"{base / 2**30:.6g} GiB of weights, gradients and optimizer "
+              f"state)", flush=True)
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # the loop: two epochs on the synthetic cases, with augmentation and
+    # dropout; one training forward per train step, one serving forward
+    # per validation step
+    loop_cfg = dataclasses.replace(
+        config, n_epochs=2, overwrite=False,
+        model_file=str(work / "model.pt"),
+        training_file=str(work / "training_ids.pkl"),
+        validation_file=str(work / "validation_ids.pkl"),
+        training_log=str(work / "training.log"))
+    data_file = InMemoryDataFile.from_cases(inputs, loop_cfg)
+    tg, n_t, vg, n_v = get_training_and_validation_generators(
+        data_file, batch_size=loop_cfg.batch_size, n_labels=1,
+        training_keys_file=loop_cfg.training_file,
+        validation_keys_file=loop_cfg.validation_file,
+        data_split=loop_cfg.validation_split, overwrite=True,
+        labels=loop_cfg.labels, patch_shape=loop_cfg.patch_shape,
+        validation_batch_size=loop_cfg.validation_batch_size,
+        validation_patch_overlap=loop_cfg.validation_patch_overlap,
+        training_patch_start_offset=loop_cfg.training_patch_start_offset,
+        skip_blank=loop_cfg.skip_blank, seed=0)
+    model, state = fresh(loop_cfg)
+    want = {k: loop_cfg.n_epochs * (n_t * ISENSEE_PER_TRAIN[k]
+                                    + n_v * ISENSEE_PER_FORWARD[k])
+            for k in ISENSEE_PER_TRAIN}
+    t = time.perf_counter()
+    state = counted("train_model", want, lambda: train_model(
+        model, state, loop_cfg, tg, vg, n_t, n_v, seed=0, verbose=False))
+    loop_s = time.perf_counter() - t
+    with open(loop_cfg.training_log) as f:
+        rows = list(csv.DictReader(f))
+    print("isensee train loop: " + "; ".join(
+        f"epoch {r['epoch']} loss {float(r['loss']):.6g} val_loss "
+        f"{float(r['val_loss']):.6g} dice {float(r['dice_coefficient']):.6g}"
+        f" {float(r['patches_per_sec']):.6g} patches/s" for r in rows)
+        + f"; {n_t} + {n_v} steps per epoch, {loop_s:.4f} s for both "
+        f"epochs; launches {launches['train_model']}", flush=True)
+    if [r["epoch"] for r in rows] != ["0", "1"]:
+        raise AssertionError(f"isensee log epochs {[r['epoch'] for r in rows]}")
+    if not float(rows[1]["loss"]) < float(rows[0]["loss"]):
+        raise AssertionError("isensee: the training loss did not fall")
+    final = CheckpointIO(str(work / "final.pt"))
+    final.save(state, epoch=2, best_val=float(rows[-1]["val_loss"]))
+    reloaded, reloaded_state = fresh(loop_cfg)
+    final.restore(reloaded_state)
+    for (n, a), b in zip(model.state_dict().items(),
+                         reloaded.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"isensee: reloaded {n} differs")
+    print("isensee train checkpoint: the final state reloaded into a fresh "
+          "model bit for bit", flush=True)
+    del model, state, reloaded, reloaded_state
+    torch.cuda.empty_cache()
+
+    # the U-Net with InstanceNorm: one batch-8 forward, where every kernel
+    # (the fused decoder too) runs with activation "none" before the norm
+    unet = Config.load(str(ROOT / "configs" / "fetal_unet.json"))
+    unet = dataclasses.replace(unet, instance_normalization=True,
+                               use_pallas_conv=True, use_pallas_dec0=True,
+                               batch_size=B)
+    unet_off = dataclasses.replace(unet, use_pallas_conv=False,
+                                   use_pallas_dec0=False)
+    unet_weights = from_flax(init_flax_like(unet, seed=0))
+    xu = torch.from_numpy(train_batch(unet)[0]).cuda().permute(
+        0, 2, 3, 4, 1).contiguous()
+    probs, fwd_ms = {}, {}
+    for name, cfg in (("on", unet), ("off", unet_off)):
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(unet_weights)
+        with torch.inference_mode():
+            if name == "on":
+                probs[name] = counted("unet instance-norm forward",
+                                      PER_FORWARD, lambda: model(xu))
+            else:
+                probs[name] = model(xu)
+            fwd_ms[name] = time_ms(torch, lambda: model(xu))
+        del model
+    diff = (probs["on"] - probs["off"]).abs().max().item()
+    flip = (probs["on"] > 0.5) != (probs["off"] > 0.5)
+    far = int((flip & ((probs["off"] - 0.5).abs() >= NORM_PROB_TOL)).sum(
+        ).item())
+    print(f"isensee unet instance-norm forward {tuple(xu.shape)}: "
+          f"max|p_on - p_off| {diff:.6g} <= tol {NORM_PROB_TOL}; label flips "
+          f"{int(flip.sum().item())}, {far} with |p - 0.5| >= tol; "
+          f"{fwd_ms['on']:.6g} ms with kernels, {fwd_ms['off']:.6g} ms "
+          f"without; launches {launches['unet instance-norm forward']}",
+          flush=True)
+    if not bool(torch.isfinite(probs["on"]).all()) or not diff <= \
+            NORM_PROB_TOL or far:
+        raise AssertionError(f"unet instance-norm: {diff}, {far} far flips")
+    return {"launches": launches, "kernels": kernel_stats}
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -990,13 +1446,13 @@ def main() -> None:
     seconds["kernels"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
-                        ("serve", serve_phase)):
+                        ("serve", serve_phase), ("isensee", isensee_phase)):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as work:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
-    launches, train_launches, serve_launches = results.values()
+    launches, train_launches, serve_launches, isensee = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -1007,6 +1463,9 @@ def main() -> None:
                 "train_launches": train_launches[name],
                 "serve_launches": {path: counts[name] for path, counts
                                    in serve_launches.items()},
+                "isensee_launches": {path: counts[name] for path, counts
+                                     in isensee["launches"].items()},
+                "isensee_forward": isensee["kernels"].get(name),
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))

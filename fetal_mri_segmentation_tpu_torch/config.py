@@ -238,19 +238,6 @@ def check_supported(config) -> None:
         raise NotImplementedError(
             f"spatial_devices={config.spatial_devices}: depth-axis spatial "
             "sharding is not ported yet (ROADMAP.md queue 1, item 11)")
-    if config.model_name != "unet":
-        raise NotImplementedError(
-            f"model_name={config.model_name!r}: only the unet is ported "
-            "(Isensee2017 is ROADMAP.md queue 1, item 8)")
-    for key in ("batch_normalization", "instance_normalization"):
-        if getattr(config, key):
-            raise NotImplementedError(
-                f"{key}=true: conv-block norms are not ported yet "
-                "(ROADMAP.md queue 1, item 2)")
-    if config.deconvolution:
-        raise NotImplementedError(
-            "deconvolution=true: the transposed-conv UpConv is not ported "
-            "yet (ROADMAP.md queue 1, item 2)")
     if config.fold_level0 not in (None, "auto", "off"):
         raise ValueError(
             f"fold_level0={config.fold_level0!r}: space-to-depth folding is "

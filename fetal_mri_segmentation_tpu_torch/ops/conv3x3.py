@@ -54,14 +54,15 @@ def conv3x3_available(ci: int, co: int) -> bool:
 
 def conv3d_ndhwc(x: torch.Tensor, weight_oidhw: torch.Tensor,
                  bias: torch.Tensor | None = None,
-                 padding: int = 0) -> torch.Tensor:
+                 padding=0, stride: int = 1) -> torch.Tensor:
     """``F.conv3d`` on NDHWC activations with a PyTorch OIDHW weight.
 
     The permuted input is a channels_last_3d view, and the weight is passed
     in the same memory format, so the convolution reads and writes
     channels-last and the result is NDHWC without a relayout."""
     w = weight_oidhw.contiguous(memory_format=torch.channels_last_3d)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=padding)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, stride=stride,
+                 padding=padding)
     return y.permute(0, 2, 3, 4, 1)
 
 

@@ -2,7 +2,8 @@
 ``fetal_mri_segmentation_tpu/training/checkpoint.py`` on ``torch.save``).
 
 ``model_file`` is one file holding the best-validation state: the model's
-``state_dict``, the optimizer's (Adam moments, step counts, learning rate),
+``state_dict`` (parameters and BatchNorm's running statistics), the
+optimizer's (Adam moments, step counts, learning rate),
 the step, the resume epoch, the best value and the epoch schedulers'
 state, so a resumed run continues exactly. Beside it, ``<model_file>
 .meta.json`` records the epoch (and the data order, always the host

@@ -40,8 +40,9 @@ def detect_dice_collapse(dice_history, *, patience: int = 3,
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
-    """The augmentation generator's seed for ``epoch``: a pure function of
-    (seed, epoch), so a resumed run draws what an uninterrupted one drew."""
+    """The step generator's seed for ``epoch`` (it draws the augmentation
+    and Isensee2017's dropout masks): a pure function of (seed, epoch), so
+    a resumed run draws what an uninterrupted one drew."""
     return int(np.random.SeedSequence((seed, epoch)).generate_state(1)[0])
 
 

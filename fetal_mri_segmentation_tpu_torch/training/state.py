@@ -110,7 +110,9 @@ def make_optimizer(params: Iterable, initial_learning_rate: float,
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters), its optimizer and the step count. The train
-    step updates all three in place."""
+    step updates all three in place. The optimizer holds the parameters
+    only; BatchNorm's running statistics are the model's buffers, moved by
+    its training forward and saved with its ``state_dict``."""
 
     model: nn.Module
     optimizer: KerasAdam

@@ -9,8 +9,17 @@ host round trip: the metrics stay on the device as 0-d tensors.
 Batches are channels-first ``(B, C, D, H, W)`` at the boundary; the step
 transposes to the model's NDHWC and back. x may arrive as bf16 and y as
 uint8 (the loop's compressed staging); both are cast to float32 on entry.
-``config.remat`` recomputes the forward in the backward pass
-(``torch.utils.checkpoint``, non-reentrant), the port of ``jax.checkpoint``.
+The train step runs the model in training mode (``model.train()``: batch
+statistics for BatchNorm, Isensee2017's upsample-then-conv decoder and its
+spatial dropout), the eval step in eval mode. Isensee2017's dropout masks
+are drawn from the step's generator after the augmentation (the JAX step
+splits one key into the two). ``config.remat`` recomputes the forward in
+the backward pass (``torch.utils.checkpoint``, non-reentrant), the port of
+``jax.checkpoint``: the masks are drawn before the checkpointed forward and
+passed in, so the recompute drops the same channels (an explicit
+generator is not restored by the checkpoint), and a model with BatchNorm
+runs without remat, as in the JAX step, since the recompute would move the
+running statistics twice.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from fetal_mri_segmentation_tpu_torch.config import check_supported
+from fetal_mri_segmentation_tpu_torch.models.layers import BatchNorm
 from fetal_mri_segmentation_tpu_torch.ops.augment import augment_batch
 from fetal_mri_segmentation_tpu_torch.ops.dice import (
     dice_coefficient, dice_coefficient_loss, weighted_dice_coefficient_loss)
@@ -45,9 +55,12 @@ def get_loss_fn(config) -> Callable:
     return loss
 
 
-def _forward(model, x_ncdhw: torch.Tensor) -> torch.Tensor:
-    """The model on channels-first input; channels-first output."""
-    return model(x_ncdhw.permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
+def _forward(model, x_ncdhw: torch.Tensor,
+             dropout_masks=None) -> torch.Tensor:
+    """The model on channels-first input; channels-first output.
+    ``dropout_masks``: Isensee2017's keep-masks for a training forward."""
+    kw = {} if dropout_masks is None else {"dropout_masks": dropout_masks}
+    return model(x_ncdhw.permute(0, 2, 3, 4, 1), **kw).permute(0, 4, 1, 2, 3)
 
 
 def _entry(model, x, y):
@@ -64,9 +77,10 @@ def make_train_step(model, config, *,
     """``step(state, x, y, n_valid=None) -> metrics``; updates ``state``
     (parameters, optimizer, step count) in place.
 
-    ``generator`` draws the augmentation (on the model's device); it is
-    needed only when the config augments. ``n_valid`` < batch masks the
-    padded tail of a ragged batch out of the loss and the metrics."""
+    ``generator`` draws the augmentation and Isensee2017's dropout masks
+    (on the model's device); it is needed only when the config augments or
+    drops. ``n_valid`` < batch masks the padded tail of a ragged batch out
+    of the loss and the metrics."""
     check_supported(config)
     loss_fn = get_loss_fn(config)
     for key in ("distort", "rotate"):
@@ -80,7 +94,13 @@ def make_train_step(model, config, *,
     if do_augment and generator is None:
         raise ValueError("config.augment is on: make_train_step needs a "
                          "torch.Generator on the model's device")
-    remat = bool(getattr(config, "remat", False))
+    needs_dropout = config.model_name == "isensee" and config.dropout_rate > 0
+    if needs_dropout and generator is None:
+        raise ValueError(f"dropout_rate={config.dropout_rate}: "
+                         "make_train_step needs a torch.Generator on the "
+                         "model's device for the dropout masks")
+    remat = bool(getattr(config, "remat", False)) and not any(
+        isinstance(m, BatchNorm) for m in model.modules())
 
     def step(state, x, y, n_valid=None):
         x, y = _entry(model, x, y)
@@ -90,10 +110,12 @@ def make_train_step(model, config, *,
                                  contrast=config.contrast)
         sample_mask = _sample_mask(x, n_valid)
         model.train()
+        masks = (model.dropout_masks(x.shape[0], generator, x.device)
+                 if needs_dropout else None)
         if remat:
-            pred = checkpoint(_forward, model, x, use_reentrant=False)
+            pred = checkpoint(_forward, model, x, masks, use_reentrant=False)
         else:
-            pred = _forward(model, x)
+            pred = _forward(model, x, masks)
         loss = loss_fn(y, pred, sample_mask)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

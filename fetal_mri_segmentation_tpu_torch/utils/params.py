@@ -1,14 +1,20 @@
-"""Moving UNet3D weights between the JAX package and the port.
+"""Moving model weights between the JAX package and the port.
 
-The flax tree, flattened with ``/``, holds ``<block>/conv/kernel`` (DHWIO)
-and ``<block>/conv/bias`` for every 3^3 conv block and ``head/kernel``
-(1, 1, 1, C, L) / ``head/bias`` for the 1^3 head
-(``models/layers.py::_ConvParams``, ``nn.Conv``). The port keeps the same
-block names and PyTorch's OIDHW weight layout: ``<block>.conv.weight``,
-``<block>.conv.bias``, ``head.weight``, ``head.bias``.
+The flax variables, flattened with ``/``, hold ``<block>/conv/kernel``
+(DHWIO) and ``<block>/conv/bias`` for every conv block, the block's norm
+(``<block>/bn/{scale,bias}`` or ``<block>/in/{scale,bias}``), BatchNorm's
+running statistics in the ``batch_stats`` collection
+(``batch_stats/<block>/bn/{mean,var}``), ``dec{L}_up/deconv/{kernel,bias}``
+for a transposed-conv up-sampling (kernel (2, 2, 2, C_in, C_out)) and the
+1^3 heads ``head/{kernel,bias}`` (UNet3D) or ``seg{L}/{kernel,bias}``
+(Isensee2017). The port keeps the same module names and PyTorch's layouts:
+``<block>.conv.weight`` (OIDHW), ``<block>.bn.scale``, the buffers
+``<block>.bn.mean`` / ``.var``, ``dec{L}_up.deconv.weight`` (C_in, C_out,
+D, H, W), ``head.weight``, ``seg{L}.weight``.
 
-``tools/export_params_npz.py`` writes a trained checkpoint's flattened tree
-with ``np.savez`` where JAX is installed; :func:`from_flax` reads it here.
+``tools/export_params_npz.py`` writes a trained checkpoint's flattened
+params (and ``batch_stats``) with ``np.savez`` where JAX is installed;
+:func:`from_flax` reads it here.
 """
 
 from __future__ import annotations
@@ -18,29 +24,36 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+_COLLECTIONS = ("params", "batch_stats")
+_VECTORS = ("bias", "scale", "mean", "var")
+
 
 def from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flattened flax params -> the port's ``state_dict`` (fp32 tensors).
+    """Flattened flax variables -> the port's ``state_dict`` (fp32).
 
-    A leading ``params/`` is dropped; any other collection (BatchNorm's
-    ``batch_stats``) has no counterpart in the port and raises."""
+    A leading ``params/`` or ``batch_stats/`` is dropped (their leaf names
+    differ: ``mean`` and ``var`` are BatchNorm's running statistics). A conv
+    kernel goes from DHWIO to OIDHW. A transposed-conv kernel (under
+    ``deconv``) goes to (C_in, C_out, D, H, W) with its three spatial axes
+    flipped: flax's ``ConvTranspose`` does not transpose the kernel, so with
+    kernel = stride = 2 it computes ``out[2i + r] = x[i] W[1 - r]`` per
+    axis, where ``conv_transpose3d`` computes ``x[i] W[r]``."""
     state = {}
     for path, value in flat.items():
         parts = path.split("/")
-        if parts[0] == "params":
+        if parts[0] in _COLLECTIONS:
             parts = parts[1:]
-        elif parts[0] == "batch_stats":
-            raise NotImplementedError(
-                "batch_stats: conv-block norms are not ported yet "
-                "(ROADMAP.md queue 1, item 2)")
         arr = np.array(value, dtype=np.float32)  # a writable copy
         if parts[-1] == "kernel":
             if arr.ndim != 5:
                 raise ValueError(f"{path}: expected a 5-D DHWIO kernel, got "
                                  f"shape {arr.shape}")
             parts[-1] = "weight"
-            arr = arr.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
-        elif parts[-1] != "bias":
+            if len(parts) > 1 and parts[-2] == "deconv":
+                arr = arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+            else:
+                arr = arr.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
+        elif parts[-1] not in _VECTORS:
             raise ValueError(f"{path}: unknown parameter {parts[-1]!r}")
         state[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
@@ -73,27 +86,61 @@ def load_optax_adam_state(optimizer, model, count: int,
 
 
 def flax_param_shapes(config) -> Dict[str, tuple]:
-    """Shapes of the flax ``UNet3D`` param tree for ``config``, flattened,
-    in the order the model creates them."""
+    """Shapes of the flax variables of ``config``'s model (``UNet3D`` or
+    ``Isensee2017``), flattened, in the order the model creates them:
+    params without a prefix, BatchNorm's running statistics under
+    ``batch_stats/``."""
     shapes = {}
 
-    def block(name, cin, cout):
-        shapes[f"{name}/conv/kernel"] = (3, 3, 3, cin, cout)
+    def block(name, cin, cout, k=3, norm=None):
+        shapes[f"{name}/conv/kernel"] = (k, k, k, cin, cout)
         shapes[f"{name}/conv/bias"] = (cout,)
+        if norm:
+            shapes[f"{name}/{norm}/scale"] = (cout,)
+            shapes[f"{name}/{norm}/bias"] = (cout,)
+        if norm == "bn":
+            shapes[f"batch_stats/{name}/bn/mean"] = (cout,)
+            shapes[f"batch_stats/{name}/bn/var"] = (cout,)
+
+    def head(name, cin):
+        shapes[f"{name}/kernel"] = (1, 1, 1, cin, config.n_labels)
+        shapes[f"{name}/bias"] = (config.n_labels,)
 
     cin = config.nb_channels
+    if config.model_name == "isensee":
+        filters = [config.n_base_filters * 2 ** level
+                   for level in range(config.depth)]
+        for level, f in enumerate(filters):
+            block(f"enc{level}_in", cin, f, norm="in")
+            block(f"enc{level}_ctx1", f, f, norm="in")
+            block(f"enc{level}_ctx2", f, f, norm="in")
+            cin = f
+        for level in range(config.depth - 2, -1, -1):
+            f = filters[level]
+            block(f"dec{level}_up", cin, f, norm="in")
+            block(f"dec{level}_loc1", 2 * f, f, norm="in")
+            block(f"dec{level}_loc2", f, f, k=1, norm="in")
+            if level < config.n_segmentation_levels:
+                head(f"seg{level}", f)
+            cin = f
+        return shapes
+
+    norm = ("bn" if config.batch_normalization else
+            "in" if config.instance_normalization else None)
     for level in range(config.depth):
         f = config.n_base_filters * 2 ** level
-        block(f"enc{level}_conv1", cin, f)
-        block(f"enc{level}_conv2", f, 2 * f)
+        block(f"enc{level}_conv1", cin, f, norm=norm)
+        block(f"enc{level}_conv2", f, 2 * f, norm=norm)
         cin = 2 * f
     for level in range(config.depth - 2, -1, -1):
         skip = 2 * config.n_base_filters * 2 ** level
-        block(f"dec{level}_conv1", cin + skip, skip)
-        block(f"dec{level}_conv2", skip, skip)
+        if config.deconvolution:
+            shapes[f"dec{level}_up/deconv/kernel"] = (2, 2, 2, cin, cin)
+            shapes[f"dec{level}_up/deconv/bias"] = (cin,)
+        block(f"dec{level}_conv1", cin + skip, skip, norm=norm)
+        block(f"dec{level}_conv2", skip, skip, norm=norm)
         cin = skip
-    shapes["head/kernel"] = (1, 1, 1, cin, config.n_labels)
-    shapes["head/bias"] = (config.n_labels,)
+    head("head", cin)
     return shapes
 
 
@@ -107,11 +154,12 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
 
 
 def init_flax_like(config, seed: int = 0) -> Dict[str, np.ndarray]:
-    """A fresh flattened flax param tree drawn with numpy: lecun-normal
+    """Fresh flattened flax variables drawn with numpy: lecun-normal
     kernels (truncated to 2 sigma, flax's variance_scaling(1, "fan_in",
-    "truncated_normal")) and zero biases, as ``_ConvParams`` and
-    ``nn.Conv`` initialize. Same keys and shapes as ``UNet3D.init``; not
-    the same random bits. Runs without JAX."""
+    "truncated_normal")), zero biases, unit norm scales, and BatchNorm's
+    running mean 0 and variance 1, as the flax modules initialize. Same
+    keys and shapes as ``model.init`` (:func:`flax_param_shapes`); not the
+    same random bits. Runs without JAX."""
     rng = np.random.default_rng(seed)
     flat = {}
     for path, shape in flax_param_shapes(config).items():
@@ -120,6 +168,8 @@ def init_flax_like(config, seed: int = 0) -> Dict[str, np.ndarray]:
             std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
             flat[path] = (_truncated_normal(rng, shape) * std).astype(
                 np.float32)
+        elif path.endswith(("scale", "var")):
+            flat[path] = np.ones(shape, np.float32)
         else:
             flat[path] = np.zeros(shape, np.float32)
     return flat

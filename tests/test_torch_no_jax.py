@@ -2,8 +2,9 @@
 system refuses jax, jaxlib, flax, optax, orbax, h5py and the JAX package
 itself, every port module imports, a tiny bf16 predict runs on the CPU
 through the kernel routes, a direct predict with flips TTA, a
-``DevicePreprocessor`` and one ``serve --once`` sweep run, and
-``train_model`` trains two epochs from an in-memory data file;
+``DevicePreprocessor`` and one ``serve --once`` sweep run,
+``train_model`` trains two epochs from an in-memory data file, and
+Isensee2017 and a BatchNorm U-Net each predict and take two train steps;
 ``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone."""
 
@@ -142,6 +143,30 @@ state = train_model(model, create_train_state(model, tcfg), tcfg, tg, vg,
                     n_t, n_v, verbose=False)
 assert state.step == 2 * n_t
 assert CheckpointIO(tcfg.model_file).peek_epoch() in (1, 2)
+
+# Isensee2017 and a BatchNorm U-Net: a sliding-window predict and two train
+# steps each (dropout and the weighted dice for Isensee)
+from fetal_mri_segmentation_tpu_torch.models import Isensee2017
+from fetal_mri_segmentation_tpu_torch.training.train_step import (
+    make_train_step)
+
+for kw in ({"model_name": "isensee", "n_segmentation_levels": 2},
+           {"batch_normalization": True}):
+    mcfg = Config(image_shape=(12, 12, 12), patch_shape=(8, 8, 8), depth=3,
+                  n_base_filters=8, use_pallas_conv=True,
+                  use_pallas_dec0=True, augment=False, **kw)
+    model = build_model(mcfg, "cpu")
+    assert isinstance(model, Isensee2017) == ("model_name" in kw)
+    prob = SlidingWindowPredictor(model, mcfg, mcfg.image_shape, overlap=2)(x)
+    assert prob.shape == (1, 12, 12, 12) and np.isfinite(prob).all()
+    step = make_train_step(model, mcfg,
+                           generator=torch.Generator().manual_seed(0))
+    mstate = create_train_state(model, mcfg)
+    xb = torch.from_numpy(data[:2, :, :8, :8, :8].copy())
+    yb = torch.from_numpy(truth[:2, :, :8, :8, :8].astype(np.float32))
+    for _ in range(2):
+        metrics = step(mstate, xb, yb)
+    assert torch.isfinite(metrics["loss"]) and mstate.step == 2
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")

@@ -89,10 +89,14 @@ def test_init_flax_like_is_lecun_normal_with_zero_bias():
 def test_from_flax_prefix_and_refusals():
     flat = {"params/enc0_conv1/conv/bias": np.ones(4, np.float32)}
     assert list(from_flax(flat)) == ["enc0_conv1.conv.bias"]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        from_flax({"batch_stats/enc0_conv1/bn/mean": np.zeros(4)})
+    stats = from_flax({"batch_stats/enc0_conv1/bn/mean": np.arange(4.0)})
+    assert list(stats) == ["enc0_conv1.bn.mean"]
+    torch.testing.assert_close(stats["enc0_conv1.bn.mean"],
+                               torch.arange(4.0), atol=0, rtol=0)
     with pytest.raises(ValueError, match="5-D"):
         from_flax({"enc0_conv1/conv/kernel": np.zeros((3, 3, 4, 8))})
+    with pytest.raises(ValueError, match="unknown parameter"):
+        from_flax({"enc0_conv1/bn/momentum": np.zeros(4)})
 
 
 def test_export_tool_round_trips_a_checkpoint(tmp_path):

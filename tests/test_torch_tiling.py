@@ -10,8 +10,9 @@ in torch from the same integers -- the per-tap boxes, the 8 strided
 sub-parity views of the skip, the K-major weights, the masked row scatter
 of the epilogue -- and the result is held against ``conv3x3_reference`` /
 ``up_concat_conv3x3_reference`` on a window around each tile. Every shape
-that ``chip_smoke.py`` checks on the card is covered, with the plan of its
-full batch. Inputs are small integers and weights multiples of 1/4, so
+that ``chip_smoke.py`` checks on the card is covered (the Isensee2017
+shapes too: 16 channels in a 64-wide N tile and a 32-channel K step, 4^3
+tiles with a ragged depth), with the plan of its full batch. Inputs are small integers and weights multiples of 1/4, so
 every sum is exact in fp32 whatever its order: atol 1e-5.
 """
 
@@ -106,12 +107,13 @@ def _replayed(fine_extent):
     return int(np.prod(fine_extent)) <= 64 ** 3
 
 
+ALL_CONV_SHAPES = chip_smoke.CONV_SHAPES + chip_smoke.ISENSEE_SHAPES
 CONV_CASES = [pytest.param(s, id=f"{s[0]}-{s[1]}")
-              for s in chip_smoke.CONV_SHAPES if _replayed(s[3:6])]
+              for s in ALL_CONV_SHAPES if _replayed(s[3:6])]
 DEC_CASES = [pytest.param(s, id=s[0]) for s in chip_smoke.DEC_SHAPES
              if _replayed([2 * v for v in s[2:5]])]
 CONV_PLAN_CASES = [pytest.param(s, id=f"{s[0]}-{s[1]}")
-                   for s in chip_smoke.CONV_SHAPES if not _replayed(s[3:6])]
+                   for s in ALL_CONV_SHAPES if not _replayed(s[3:6])]
 DEC_PLAN_CASES = [pytest.param(s, id=s[0]) for s in chip_smoke.DEC_SHAPES
                   if not _replayed([2 * v for v in s[2:5]])]
 
@@ -311,6 +313,29 @@ def test_k_step_follows_c_in(layer, kb, chunks):
     assert (plan.kb, plan.chunks) == (kb, chunks)
     assert plan.maps[0].box[0] == plan.maps[1].box[0] == kb
     assert plan.maps[0].spec(0)[-1] == 2 * kb  # swizzle bytes
+
+
+@pytest.mark.parametrize("layer,bn,kb,box,tiles", [
+    ("serve isensee enc0_ctx", 64, 32, (1, 4, 64), (64, 16, 1)),
+    ("direct isensee enc0_ctx", 64, 32, (1, 2, 128), (128, 64, 1)),
+    ("serve isensee dec0_loc1", 64, 32, (1, 4, 64), (64, 16, 1)),
+    ("serve isensee enc4_ctx", 128, 64, (8, 4, 4), (1, 1, 1)),
+    ("direct isensee enc4_ctx", 128, 64, (2, 8, 8), (4, 1, 1))])
+def test_isensee_narrow_and_deep_plans(layer, bn, kb, box, tiles):
+    """The Isensee shapes the U-Net never gave the kernel: 16 output
+    channels in a 64-wide N tile and 16 input channels in a 32-channel K
+    step (TMA's zero fill pads both), and the 4^3 level at batch 8, one
+    (8, 4, 4) box per sample over a depth of 4 (the rows past the depth
+    masked)."""
+    entry, _, B, D, H, W, ci, co = next(
+        s for s in chip_smoke.ISENSEE_SHAPES if s[1] == layer)
+    assert chip_smoke.ACTIVATION[layer] == "none"
+    plan = conv_ops.tile_plan(B, D, H, W, ci, co)
+    assert (plan.bn, plan.kb, plan.box, plan.tiles) == (bn, kb, box, tiles)
+    assert plan.m_tiles == B * np.prod(tiles) and plan.n_tiles == 1 + (
+        co > bn)
+    w_map = plan.maps[1]
+    assert w_map.dims == (ci, 27, co) and w_map.box == (kb, 1, bn)
 
 
 def test_skip_sub_parity_maps_address_the_fine_voxels():

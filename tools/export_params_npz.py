@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Export a trained UNet3D checkpoint's params for the PyTorch port.
+"""Export a trained checkpoint's variables for the PyTorch port.
 
     python tools/export_params_npz.py --config my_experiment.json \
         [--out params.npz]
@@ -7,7 +7,9 @@
 Runs where JAX is installed: restores ``config.model_file`` with
 ``fetal_mri_segmentation_tpu.inference.predict.load_serving_model`` and
 writes the flax params, flattened with "/" (``enc0_conv1/conv/kernel``, ...),
-with ``np.savez``. The port reads the file with
+and a BatchNorm model's running statistics under ``batch_stats/``
+(``batch_stats/enc0_conv1/bn/mean``, ...), with ``np.savez``. The port
+reads the file with
 ``fetal_mri_segmentation_tpu_torch.inference.predict.load_serving_model``,
 or as ``--params`` of ``python -m fetal_mri_segmentation_tpu_torch.predict``.
 """
@@ -24,19 +26,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def export_params(config, out: str) -> int:
-    """Write ``config.model_file``'s params to ``out``; returns the number
-    of arrays written."""
+    """Write ``config.model_file``'s params (and ``batch_stats``) to
+    ``out``; returns the number of arrays written."""
     from flax.traverse_util import flatten_dict
 
     from fetal_mri_segmentation_tpu.inference.predict import (
         load_serving_model)
 
     _, variables = load_serving_model(config)
-    if "batch_stats" in variables:
-        raise NotImplementedError(
-            "BatchNorm statistics: conv-block norms are not ported yet "
-            "(ROADMAP.md queue 1, item 2)")
     flat = flatten_dict(variables["params"], sep="/")
+    flat.update({f"batch_stats/{key}": value for key, value in flatten_dict(
+        variables.get("batch_stats", {}), sep="/").items()})
     np.savez(out, **{key: np.asarray(value) for key, value in flat.items()})
     return len(flat)
 

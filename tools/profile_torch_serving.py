@@ -4,9 +4,10 @@
     python tools/profile_torch_serving.py [--config configs/fetal_unet.json]
         [--trace-dir DIR]
 
-Needs a CUDA device. Builds the config's UNet3D with random weights (seed
-0), once with both kernel switches on and once with both off, and predicts
-one synthetic preprocessed volume with ``SlidingWindowPredictor.
+Needs a CUDA device. Builds the config's model (UNet3D or Isensee2017)
+with random weights (seed 0), once with both kernel switches on and once
+with both off, and predicts one synthetic preprocessed volume with
+``SlidingWindowPredictor.
 predict_labels`` (one warm-up, then three timed runs, then one run under
 ``torch.profiler``). Prints, for each: host seconds per case (ending in a
 synchronize), device-busy seconds from the profiler's CUDA kernel times, the

@@ -4,11 +4,12 @@
     python tools/profile_torch_training.py [--config configs/fetal_unet.json]
         [--trace-dir DIR]
 
-Needs a CUDA device. Builds the config's UNet3D with random weights (seed
-0), once with both kernel switches on and once with both off, and runs the
-port's train step (augmentation, forward, dice loss, backward, Adam) on one
-synthetic batch of the config's patches: one warm-up step, three timed
-steps, then one step under ``torch.profiler``. Prints, for each: host
+Needs a CUDA device. Builds the config's model (UNet3D or Isensee2017)
+with random weights (seed 0), once with both kernel switches on and once
+with both off, and runs the port's train step (augmentation, dropout,
+forward, dice loss, backward, Adam) on one synthetic batch of the config's
+patches: one warm-up step, three timed steps, then one step under
+``torch.profiler``. Prints, for each: host
 seconds per step (ending in a synchronize), device-busy seconds from the
 profiler's CUDA kernel times, the idle share, and the kernels with the
 most device time. ``--trace-dir`` also writes the Chrome traces.
