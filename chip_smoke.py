@@ -56,7 +56,20 @@ Phases, one line each (or one line per checked shape):
    of the U-Net with InstanceNorm against the switches off, where the
    fused-decoder kernel runs with activation "none" before the norm. Every
    counted run's launches are exact: 6 / 8 / 0 per serving forward, 8 /
-   10 / 0 per training forward, 6 / 4 / 3 for the U-Net.
+   10 / 0 per training forward, 6 / 4 / 3 for the U-Net;
+8. experiment: ``configs/fetal_unet.json`` at full width with ``distort``
+   0.25 and ``rotate`` 15 through the experiment path's entry points, on
+   six synthetic cases: ``train.main`` builds the dataset in the port's
+   directory layout, writes the split, trains two epochs (the loss falls)
+   and writes the checkpoint; ``apply_scale`` and ``apply_rotation`` on the
+   card against the CPU (x within ``RESAMPLE_TOL``, truth equal) and a
+   train step's milliseconds with and without them; ``predict.main`` with
+   no input and no params predicts the validation split from the
+   checkpoint and the dataset through the sliding window and with
+   ``direct`` (its probabilities and the switches-off path's each held to
+   an fp32 model); ``evaluate.main`` scores that tree and
+   ``ensemble.main`` merges two probability trees. Launches exactly 6 / 4
+   / 3 per forward of each counted run.
 
 The kernel phase also checks every kernel layer of the direct 128^3
 forward at batch 1 and at the TTA chunks of 2 and 8, and prints each
@@ -72,6 +85,7 @@ non-zero; without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1405,6 +1419,293 @@ def isensee_phase(torch, work: Path) -> dict:
     return {"launches": launches, "kernels": kernel_stats}
 
 
+# The resampling augmentations on the card against the same functions on the
+# CPU, from the same factors and angles. The source coordinates are made of
+# one fp32 rounding per operation on both (no fused multiply-add; the
+# rotation matrix in float64, rounded once), and the trilinear sum adds its
+# eight terms in one order, so the two agree to the last bits; 1e-5 on
+# O(1) intensities leaves room for a device exp/sin that differs in its last
+# ulp. The truth (nearest voxel) must be equal voxel for voxel.
+RESAMPLE_TOL = 1e-5
+# The experiment phase trains at 1e-4, not the config's 5e-4: from random
+# weights on six cases, with scale and rotation on top of flip / permute /
+# contrast, the config's rate falls into soft Dice's "predict nothing" basin
+# in the second epoch (training dice 0.10 -> 0.03 -> 0.0001, with the kernels
+# and without; NVIDIA H100 80GB HBM3, 700 W), where 2e-4 and below train
+# steadily in every seed tried (tools/probe_torch_train_stability.py).
+EXPERIMENT_LR = 1e-4
+
+
+def experiment_phase(torch, work: Path) -> dict:
+    """The experiment path at full width (``configs/fetal_unet.json``, both
+    kernel switches on, ``distort`` 0.25 and ``rotate`` 15) through its
+    entry points: ``train.main`` on six NIfTI cases (the native dataset is
+    built, the split written, two epochs trained, the checkpoint written),
+    the resampling augmentations on the card against the CPU and a train
+    step's time with and without them, ``predict.main`` over the validation
+    split from the checkpoint and the dataset (sliding window, then
+    ``--direct``; the switches-off path and an fp32 model as the
+    references), ``evaluate.main`` on
+    that tree and ``ensemble.main`` over two probability trees. Launches
+    are zeroed before and read after each counted run and must be its
+    forwards' worth exactly."""
+    import csv
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch import (
+        ensemble, evaluate, predict as entry, train)
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.data.build import (
+        dataset_bytes, open_data_file)
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.ops import augment
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        get_number_of_patches, get_number_of_steps)
+    from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
+        CheckpointIO)
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+    from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    torch.backends.cudnn.allow_tf32 = True  # as the train phase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = Config.load(str(ROOT / "configs" / "fetal_unet.json"))
+    config = dataclasses.replace(
+        config, use_pallas_conv=True, use_pallas_dec0=True, distort=0.25,
+        rotate=15.0, n_epochs=2, initial_learning_rate=EXPERIMENT_LR,
+        data_file=str(work / "fetal_data"),
+        model_file=str(work / "fetal_unet.ckpt"),
+        training_file=str(work / "training_ids.pkl"),
+        validation_file=str(work / "validation_ids.pkl"),
+        training_log=str(work / "training.log"))
+    config_off = dataclasses.replace(config, use_pallas_conv=False,
+                                     use_pallas_dec0=False)
+    config_fp32 = dataclasses.replace(config_off, compute_dtype="float32")
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+    launches = {}
+
+    def counted(name, forwards, run):
+        """Zero the counts, run, read them: exactly ``forwards`` forwards'
+        worth of launches."""
+        for fn in counters:
+            fn.launches = 0
+        t = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches[name] = {fn.__name__: fn.launches for fn in counters}
+        want = {k: n * forwards for k, n in PER_FORWARD.items()}
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]}, not "
+                                 f"{want} ({forwards} forwards)")
+        return result, seconds
+
+    # 1. train.main: dataset, split, two epochs, checkpoint
+    n_cases = 6
+    write_cases(work / "cases", n=n_cases)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state = train.main(config, str(work / "cases"), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches["train.main"] = {fn.__name__: fn.launches for fn in counters}
+    with open_data_file(config.data_file) as data_file:
+        shape = tuple(data_file.root.data.shape)
+        ids = data_file.subject_ids
+        validation = pickle_load(config.validation_file)
+        training = pickle_load(config.training_file)
+        n_v = get_number_of_steps(get_number_of_patches(
+            data_file, validation, config.patch_shape,
+            patch_overlap=config.validation_patch_overlap,
+            skip_blank=config.skip_blank), config.validation_batch_size)
+    n_t = state.step // config.n_epochs
+    if shape != (n_cases, 1) + tuple(config.image_shape) or ids != [
+            f"case_{i}" for i in range(n_cases)]:
+        raise AssertionError(f"dataset {shape}, ids {ids}")
+    if (len(training), len(validation)) != (4, 2) or set(training) & set(
+            validation):
+        raise AssertionError(f"split {training} / {validation}")
+    want = {k: n * config.n_epochs * (n_t + n_v)
+            for k, n in PER_FORWARD.items()}
+    with open(config.training_log) as f:
+        rows = list(csv.DictReader(f))
+    print(f"experiment train.main: dataset {shape} float32 in the native "
+          f"layout, {dataset_bytes(config.data_file)} bytes; split "
+          f"{len(training)} + {len(validation)} cases; {n_t} + {n_v} steps "
+          f"per epoch; " + "; ".join(
+              f"epoch {r['epoch']} loss {float(r['loss']):.6g} val_loss "
+              f"{float(r['val_loss']):.6g} {float(r['patches_per_sec']):.6g}"
+              f" patches/s" for r in rows)
+          + f"; {train_s:.4f} s in all; launches {launches['train.main']}",
+          flush=True)
+    if launches["train.main"] != want or state.step != 2 * n_t or n_t <= 0:
+        raise AssertionError(f"train.main launched {launches['train.main']}"
+                             f", not {want}")
+    if [r["epoch"] for r in rows] != ["0", "1"] or not float(
+            rows[1]["loss"]) < float(rows[0]["loss"]):
+        raise AssertionError(f"training log {rows}")
+    if CheckpointIO(config.model_file).peek_epoch() not in (1, 2):
+        raise AssertionError("no checkpoint with its epoch sidecar")
+    del state
+    torch.cuda.empty_cache()
+
+    # 2. the resampling augmentations: the card against the CPU on one
+    # batch, then a train step's time with and without them
+    x_np, y_np = train_batch(config)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    factors = augment.draw_scale_factors(gen, x.shape[0], config.distort)
+    angles = augment.draw_rotation_angles(gen, x.shape[0], config.rotate)
+    worst = 0.0
+    for name, fn, p in (("apply_scale", augment.apply_scale, factors),
+                        ("apply_rotation", augment.apply_rotation, angles)):
+        gx, gy = fn(x, y, p)
+        cx, cy = fn(x.cpu(), y.cpu(), p.cpu())
+        err = (gx.cpu() - cx).abs().max().item()
+        differ = int((gy.cpu() != cy).sum().item())
+        moved = int((gy != y).sum().item())
+        ms = time_ms(torch, lambda: fn(x, y, p))
+        print(f"experiment {name}: card against CPU on "
+              f"{tuple(x.shape)}: max|x diff| {err:.6g} <= tol "
+              f"{RESAMPLE_TOL}, {differ} truth voxels differ ({moved} moved "
+              f"by the transform); {ms:.6g} ms on the card", flush=True)
+        if not err <= RESAMPLE_TOL or differ or not moved:
+            raise AssertionError(f"{name}: x {err}, truth {differ}")
+        if gx.dtype != torch.float32 or gx.shape != x.shape:
+            raise AssertionError(f"{name}: {gx.dtype} {tuple(gx.shape)}")
+        worst = max(worst, err)
+    weights = from_flax(init_flax_like(config, seed=0))
+    step_ms = {}
+    for name, cfg in (
+            ("all augmentations", config),
+            ("no scale or rotation",
+             dataclasses.replace(config, distort=None, rotate=None)),
+            ("all augmentations, kernels off", config_off)):
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(weights)
+        step_state = create_train_state(model, cfg)
+        step = make_train_step(
+            model, cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+        step_ms[name] = time_ms(torch, lambda: step(step_state, x, y))
+        del model, step_state, step
+        torch.cuda.empty_cache()
+    print("experiment train step of "
+          f"{config.batch_size}x{tuple(config.patch_shape)}: "
+          + ", ".join(f"{v:.6g} ms with {k}" for k, v in step_ms.items()),
+          flush=True)
+
+    # 3. predict.main over the validation split, from the checkpoint and
+    # the dataset: no --input, no --params. 27 patches of 64^3 per case in
+    # batches of 8 are 4 forwards; --direct is 1.
+    cases = [ids[i] for i in validation]
+    per_case = {}
+    for mode, forwards in (("sliding", 4), ("direct", 1)):
+        direct = mode == "direct"
+        out = work / f"prediction_{mode}"
+        n, seconds = counted(
+            f"predict {mode}", forwards * len(cases),
+            lambda: entry.main(config, output_dir=str(out), direct=direct,
+                               device="cuda", verbose=False))
+        per_case[mode] = seconds / n
+        if n != len(cases) or sorted(os.listdir(out)) != sorted(cases):
+            raise AssertionError(f"{out}: {n} cases, {os.listdir(out)}")
+        for case in cases:
+            files = sorted(os.listdir(out / case))
+            label = load_nifti(str(out / case / "prediction.nii.gz"))
+            if files != ["data_volume.nii.gz", "prediction.nii.gz",
+                         "truth.nii.gz"] or tuple(label.shape) != tuple(
+                    config.image_shape) or not set(np.unique(
+                        label.get_fdata())) <= {0.0, 1.0}:
+                raise AssertionError(f"{out / case}: {files}")
+        # probabilities with the kernels, with the switches off and from an
+        # fp32 model, all from the checkpoint. Trained weights spread the
+        # logits, so the two bf16 paths sit further apart than PROB_TOL
+        # allows for random weights (0.0234 through the sliding window, of
+        # which cuDNN's bf16 path is 0.0202 from fp32 and the kernel route
+        # 0.0105; NVIDIA H100 80GB HBM3, 700 W): each is held to the fp32
+        # model, the kernel route no further from it than twice the other.
+        counted(f"predict {mode} --prob-map", forwards * len(cases),
+                lambda: entry.main(config, output_dir=str(
+                    work / f"prob_{mode}_on"), direct=direct, prob_map=True,
+                    device="cuda", verbose=False))
+        for fn in counters:
+            fn.launches = 0
+        for name, cfg in (("off", config_off), ("fp32", config_fp32)):
+            entry.main(cfg, output_dir=str(work / f"prob_{mode}_{name}"),
+                       direct=direct, prob_map=True, device="cuda",
+                       verbose=False)
+        if any(fn.launches for fn in counters):
+            raise AssertionError("the switches are off and a kernel ran")
+        diff = err_on = err_off = 0.0
+        far = 0
+        for case in cases:
+            p_on, p_off, p_32 = (load_nifti(str(
+                work / f"prob_{mode}_{k}" / case / "prediction.nii.gz")
+                ).get_fdata() for k in ("on", "off", "fp32"))
+            if not np.isfinite(p_on).all():
+                raise AssertionError(f"{case}: non-finite probabilities")
+            diff = max(diff, float(np.abs(p_on - p_off).max()))
+            err_on = max(err_on, float(np.abs(p_on - p_32).max()))
+            err_off = max(err_off, float(np.abs(p_off - p_32).max()))
+            far += int(((p_on > 0.5) != (p_32 > 0.5))[
+                np.abs(p_32 - 0.5) >= PROB_TOL].sum())
+        print(f"experiment predict.main {mode} over the validation split "
+              f"({len(cases)} cases, checkpoint and dataset): "
+              f"{per_case[mode]:.4f} s per case, model load included; "
+              f"against the fp32 model max|p_on - p32| {err_on:.6g}, "
+              f"max|p_off - p32| {err_off:.6g} (bound max(2 x {err_off:.6g}"
+              f", {PROB_TOL})), max|p_on - p_off| {diff:.6g}; {far} "
+              f"label flips against fp32 with |p - 0.5| >= "
+              f"{PROB_TOL}; launches {launches[f'predict {mode}']}",
+              flush=True)
+        if not err_on <= max(2 * err_off, PROB_TOL) or far:
+            raise AssertionError(f"predict {mode} against the fp32 model: "
+                                 f"{err_on} with the kernels, {err_off} "
+                                 f"without, {far} far flips")
+
+    # 4. evaluate on the sliding-window tree, ensemble over the two
+    # probability trees
+    scores = evaluate.main(str(work / "prediction_sliding"), [1],
+                           str(work / "scores.csv"), plot=False,
+                           surface_metrics=True)
+    with open(work / "scores.csv") as f:
+        table = list(csv.reader(f))
+    dice = {case: row["label_1_dice"] for case, row in scores.items()}
+    optional = {m: importlib.util.find_spec(m) is not None
+                for m in ("matplotlib", "pandas", "h5py")}
+    print(f"experiment evaluate.main: scores.csv with {len(table) - 1} rows, "
+          f"columns {table[0][1:]}; hard Dice {dice}; installed here: "
+          f"{optional}", flush=True)
+    if sorted(scores) != sorted(cases) or len(table) != len(cases) + 1 or \
+            not all(np.isfinite(v) for v in dice.values()):
+        raise AssertionError(f"scores {scores}")
+    n = ensemble.main([str(work / "prob_sliding_on"),
+                       str(work / "prob_direct_on")],
+                      str(work / "ensemble"), labels=[1], save_prob=True)
+    merged = load_nifti(str(work / "ensemble" / cases[0]
+                            / "prediction.nii.gz")).get_fdata()
+    if n != len(cases) or not set(np.unique(merged)) <= {0.0, 1.0} or \
+            merged.shape != tuple(config.image_shape):
+        raise AssertionError(f"ensemble: {n} cases, {np.unique(merged)}")
+    print(f"experiment ensemble.main: {n} cases from the sliding-window and "
+          f"direct probability trees, {int(merged.sum())} foreground voxels "
+          f"in {cases[0]}", flush=True)
+    return launches
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -1446,13 +1747,15 @@ def main() -> None:
     seconds["kernels"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
-                        ("serve", serve_phase), ("isensee", isensee_phase)):
+                        ("serve", serve_phase), ("isensee", isensee_phase),
+                        ("experiment", experiment_phase)):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as work:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
-    launches, train_launches, serve_launches, isensee = results.values()
+    (launches, train_launches, serve_launches, isensee,
+     experiment) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -1466,6 +1769,8 @@ def main() -> None:
                 "isensee_launches": {path: counts[name] for path, counts
                                      in isensee["launches"].items()},
                 "isensee_forward": isensee["kernels"].get(name),
+                "experiment_launches": {path: counts[name] for path, counts
+                                        in experiment.items()},
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))

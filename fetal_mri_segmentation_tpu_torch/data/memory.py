@@ -4,8 +4,9 @@ The JAX package's dataset is an HDF5 file (``data/build.py``, h5py) whose
 ``root.data`` is (N, C, D, H, W) float32 and ``root.truth`` (N, 1, D, H, W)
 uint8. :class:`InMemoryDataFile` exposes numpy arrays of the same layout
 under the same names, so the generators (``pipeline/generator.py``) read it
-unchanged. It is not a file format and writes nothing to disk; it stands in
-for HDF5 where h5py is missing.
+unchanged. It is not a file format and writes nothing to disk: the port's
+dataset on disk is ``data/build.py``'s directory layout, and this class
+stays for tests that want cases in memory.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Per-case serving from NIfTI files (port of the ad-hoc ``--input`` path of
-``fetal_mri_segmentation_tpu/inference/predict.py``).
+"""Per-case serving: ad-hoc NIfTI cases and the dataset's validation
+split (port of ``fetal_mri_segmentation_tpu/inference/predict.py``).
 
 ``preprocess_case`` runs dataset ingest's preprocessing (shared background
 crop, resample to ``config.image_shape``, the configured normalization) on
@@ -13,6 +13,13 @@ for a sequence of cases with two stages in flight: case i+1's host
 preprocessing and upload run while case i computes on the device, and
 every NIfTI write runs on one worker thread.
 
+``run_validation_cases`` predicts every case of the validation split
+from the dataset (``data/build.py``, already preprocessed) into
+``<output_dir>/<subject id or validation_case_<i>>/`` through the same
+pipeline. ``load_serving_model`` loads the port's own checkpoint
+(``training/checkpoint.py``) or an exported flax ``.npz``;
+``load_global_moments`` reads a ``global`` dataset's training moments.
+
 The predictors are the sliding window (``inference/sliding_window.py``) and
 the direct whole-volume predictor (``parallel/spatial.py``), each with
 optional test-time augmentation (``build_serving_predictor``).
@@ -22,10 +29,12 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
 
+from fetal_mri_segmentation_tpu_torch.data.build import open_data_file
 from fetal_mri_segmentation_tpu_torch.data.normalize import normalize_case
 from fetal_mri_segmentation_tpu_torch.inference.labelmaps import (
     label_map_dtype, prediction_to_image)
@@ -38,15 +47,28 @@ from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 from fetal_mri_segmentation_tpu_torch.utils.geometry import (
     process_case_images, resample_to_shape, zoomed_affine)
+from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load
 from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti, save_nifti
-from fetal_mri_segmentation_tpu_torch.utils.params import from_flax
+from fetal_mri_segmentation_tpu_torch.utils.params import (
+    OPT_PREFIX, from_flax)
 from fetal_mri_segmentation_tpu_torch.utils.residency import (
     _QUANT_SCALE, resolve_prob_transfer)
 
 _GLOBAL_MOMENTS = (
-    "normalization='global' needs the training moments; reading them from "
-    "the HDF5 dataset waits for the dataset format (ROADMAP.md queue 1, "
-    "item 9): pass global_moments")
+    "normalization='global' needs the training dataset's (mean, std): pass "
+    "global_moments (load_global_moments(config.data_file) reads them from "
+    "a dataset that was built with normalization='global')")
+
+
+def load_global_moments(data_file_path: str):
+    """Training-distribution ``(mean, std)`` persisted by the dataset
+    builder for ``normalization="global"`` (``meta.json`` of the port's
+    layout, the attrs of the JAX package's HDF5 file); None when the
+    dataset is absent or holds none."""
+    if not os.path.exists(data_file_path):
+        return None
+    with open_data_file(data_file_path) as data_file:
+        return data_file.global_moments
 
 
 def resolve_case_files(path: str, config) -> tuple:
@@ -135,7 +157,7 @@ def preprocess_case(input_path: str, config, *, crop: bool = True,
         return data, affine, truth_image
 
     if config.normalization == "global" and global_moments is None:
-        raise NotImplementedError(_GLOBAL_MOMENTS)
+        raise ValueError(_GLOBAL_MOMENTS)
     images = process_case_images(
         [load_nifti(f) for f in all_files], image_shape=config.image_shape,
         crop=crop, label_indices=label_indices)
@@ -354,12 +376,141 @@ def predict_cases_pipelined(cases, predictor, config, *,
     return n
 
 
-def load_serving_model(config, params_npz: str, device="cuda"):
-    """Build the configured model on ``device`` and load the flattened flax
-    params that ``tools/export_params_npz.py`` wrote."""
+def _load_case(case_index, out_dir, data_file, config, submit,
+               save_inputs: bool):
+    """Read one case from the dataset; queue the reference's input and
+    truth NIfTIs."""
+    os.makedirs(out_dir, exist_ok=True)
+    affine = np.asarray(data_file.root.affine[case_index])
+    # a copy: the dataset's memory map is read-only, and the predictor
+    # stages the volume through pinned memory
+    data = np.array(data_file.root.data[case_index], np.float32)
+    if save_inputs:
+        for i, modality in enumerate(config.training_modalities):
+            path = os.path.join(out_dir, f"data_{modality}.nii.gz")
+            submit(path, save_nifti, data[i], path, affine=affine)
+        truth = np.asarray(data_file.root.truth[case_index][0])
+        path = os.path.join(out_dir, "truth.nii.gz")
+        submit(path, save_nifti, truth.astype(np.uint8), path, affine=affine)
+    return data, affine
+
+
+def run_validation_case(case_index: int, out_dir: str, data_file, config,
+                        predictor, output_label_map: bool = True,
+                        threshold: float = 0.5, save_inputs: bool = True,
+                        io_submit=None) -> np.ndarray:
+    """Predict one stored case; writes the reference's per-case output tree
+    and returns the written label map (or the probability map).
+    ``io_submit`` as in :func:`predict_case`."""
+    submit = io_submit if io_submit is not None else _direct_submit
+    data, affine = _load_case(case_index, out_dir, data_file, config, submit,
+                              save_inputs)
+    if output_label_map:
+        return _write_prediction(predictor.predict_labels(data, threshold),
+                                 config, out_dir, affine, submit)
+    return _write_probability(predictor(data), config, out_dir, affine,
+                              submit)
+
+
+def _single_device_only(mesh, spatial_mesh) -> None:
+    """``mesh`` / ``spatial_mesh`` carry a device count here (the port has
+    no mesh object): more than one device raises by name."""
+    if mesh is not None and int(mesh) > 1:
+        raise NotImplementedError(
+            f"mesh={mesh}: the patch grid sharded over devices is not "
+            "ported yet (ROADMAP.md queue 1, DDP)")
+    if spatial_mesh is not None and int(spatial_mesh) > 1:
+        raise NotImplementedError(
+            f"spatial_mesh={spatial_mesh}: depth-axis sharding is not "
+            "ported yet (ROADMAP.md queue 1, spatial sharding over more "
+            "than one device)")
+
+
+def run_validation_cases(validation_keys_file: str, model, data_file, config,
+                         output_dir: str = "prediction", overlap: int = 16,
+                         threshold: float = 0.5,
+                         output_label_map: bool = True, permute=False,
+                         patch_batch_size: int = 8, mesh=None,
+                         spatial_mesh=None, prob_dtype: str = "float32",
+                         direct: bool = False, device=None) -> int:
+    """Predict every validation case into ``output_dir/<subject id>`` (or
+    ``validation_case_<i>`` for a dataset without ids). Reference:
+    ``prediction.py::run_validation_cases``: the same output tree, one
+    predictor reused across cases (all volumes share the dataset's
+    ``image_shape``), the two-stage pipeline of
+    :func:`predict_cases_pipelined` with the NIfTI writes on a worker pool.
+
+    ``permute``: False | True/"permute" | "flips" (``resolve_tta``).
+    ``direct`` runs one whole-volume forward per case (the JAX package's
+    one-device spatial mesh). ``mesh`` and ``spatial_mesh`` are device
+    counts here, and above one device they raise. Returns the number of
+    cases."""
+    _single_device_only(mesh, spatial_mesh)
+    validation_indices = pickle_load(validation_keys_file)
+    image_shape = tuple(data_file.root.data.shape[-3:])
+    device = None if device is None else resolve_device(device)
+    if direct:
+        predictor = make_direct_predictor(model, config, tta=permute,
+                                          device=device)
+        predictor._check_shape(image_shape)
+    else:
+        predictor = SlidingWindowPredictor(
+            model, config, image_shape=image_shape, overlap=overlap,
+            patch_batch_size=patch_batch_size, device=device, tta=permute)
+    subject_ids = data_file.subject_ids
+
+    def case_dir_of(index):
+        name = (subject_ids[index] if subject_ids
+                else f"validation_case_{index}")
+        return os.path.join(output_dir, name)
+
+    futures = []
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        def submit(target, fn, *a, **kw):
+            futures.append(pool.submit(fn, *a, **kw))
+
+        def stream():
+            for index in validation_indices:
+                case_dir = case_dir_of(index)
+                data, affine = _load_case(index, case_dir, data_file, config,
+                                          submit, save_inputs=True)
+                yield data, affine, case_dir, None
+
+        if output_label_map:
+            n = _drive_label_pipeline(stream(), predictor, config, threshold,
+                                      submit)
+        else:
+            n = _drive_prob_pipeline(stream(), predictor, config, submit,
+                                     transfer_dtype=prob_dtype)
+    for f in futures:  # surface any write error once all IO drained
+        f.result()
+    return n
+
+
+def load_serving_model(config, params: Optional[str] = None,
+                       device="cuda"):
+    """Build the configured model on ``device`` and load its weights: with
+    no ``params`` the model state of the port's own checkpoint at
+    ``config.model_file`` (``training/checkpoint.py``), else the flattened
+    flax params (and ``batch_stats``) that ``tools/export_params_npz.py``
+    wrote as an ``.npz``."""
+    path = params if params is not None else config.model_file
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{path}: no weights to serve. Either train with python -m "
+            "fetal_mri_segmentation_tpu_torch.train (it writes the "
+            "checkpoint config.model_file, read when --params is not "
+            "given), or pass --params PARAMS.npz (flattened flax params "
+            "from tools/export_params_npz.py)")
     model = build_model(config, device)
-    with np.load(params_npz) as flat:
-        state = from_flax({k: flat[k] for k in flat.files})
+    if params is None:
+        payload = torch.load(path, map_location=resolve_device(device),
+                             weights_only=True)
+        state = payload["model"]
+    else:
+        with np.load(path) as flat:
+            state = from_flax({k: flat[k] for k in flat.files
+                               if not k.startswith(OPT_PREFIX)})
     model.load_state_dict(state)
     return model
 
@@ -368,9 +519,12 @@ def make_device_preprocessor(model, config, moments=None):
     """The serving ingest's ``DevicePreprocessor`` for ``model``: on the
     model's device, staged and handed over in the model's dtype (a bf16
     model uploads the raw volume in bf16, half the bytes, and the predictor
-    casts nothing). ``normalization="global"`` needs ``moments``."""
+    casts nothing). ``normalization="global"`` takes ``moments``, or reads
+    them from ``config.data_file``."""
     if config.normalization == "global" and moments is None:
-        raise NotImplementedError(_GLOBAL_MOMENTS)
+        moments = load_global_moments(config.data_file)
+        if moments is None:
+            raise ValueError(_GLOBAL_MOMENTS)
     dtype = (torch.bfloat16 if model.dtype == torch.bfloat16
              else torch.float32)
     return DevicePreprocessor(

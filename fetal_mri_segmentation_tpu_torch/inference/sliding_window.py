@@ -143,7 +143,11 @@ class SlidingWindowPredictor:
     @torch.inference_mode()
     def predict_probabilities(self, data_cdhw) -> torch.Tensor:
         """(C, D, H, W) -> fp32 probabilities (L, D, H, W) on the device;
-        enqueued without a synchronization."""
+        enqueued without a synchronization. The module is put in eval
+        mode here, at every prediction (a train step on the same module
+        leaves it in training mode), as the JAX predictor applies with
+        ``train=False`` whatever ran before."""
+        self.model.eval()
         vol = self._stage_volume(data_cdhw)
         acc = torch.zeros(self.padded_shape + (self.n_labels,),
                           dtype=torch.float32, device=self.device)

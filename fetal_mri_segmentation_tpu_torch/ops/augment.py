@@ -1,6 +1,5 @@
-"""On-device augmentation: flips, the 48 cube symmetries and contrast
-(port of the flip / permute / contrast part of
-``fetal_mri_segmentation_tpu/ops/augment.py``).
+"""On-device augmentation: scale, rotation, flips, the 48 cube symmetries
+and contrast (port of ``fetal_mri_segmentation_tpu/ops/augment.py``).
 
 Each random transform is a draw (per example, on the generator's device,
 from a ``torch.Generator``) and a deterministic apply that takes the drawn
@@ -10,9 +9,17 @@ spatial axis ``a`` of example ``b`` reads source axis ``axes[b, a]``,
 reversed where ``rev[b, a]``, so every example takes its own draw with no
 host round trip. Batches are channels-first ``(B, C, D, H, W)``.
 
-``random_scale`` and ``random_rotation`` (``map_coordinates``) are not
-ported yet (ROADMAP.md queue 1, item 7); ``training/train_step.py::
-make_train_step`` refuses ``distort`` and ``rotate``.
+Scale and rotation resample each example at source coordinates in voxel
+index space about the patch centre ``(s - 1) / 2``, as
+``jax.scipy.ndimage.map_coordinates`` does with ``mode="constant",
+cval=0``: the data trilinearly (floor, two weights per axis, eight reads),
+the truth at the nearest voxel with halves rounded away from zero
+(``lax.round``; ``torch.round`` rounds them to even, and with a centre of
+31.5 the ties are real). The gather is written out in plain ops so that it
+can be held exact: the coordinates are made of one rounding per operation
+(no fused multiply-add), and the rotation matrix is made in float64 and
+rounded once, so the CPU and the card resample at the same coordinates.
+No kernel of the JAX package computes this, and none does here.
 """
 
 from __future__ import annotations
@@ -194,6 +201,117 @@ def apply_contrast(x: torch.Tensor, scale: torch.Tensor,
     return x * scale.view(view) + shift.view(view) * std
 
 
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """Nearest integer (int64), halves away from zero (``lax.round``).
+    ``x - trunc(x)`` is exact, where ``|x| + 0.5`` could round up."""
+    t = torch.trunc(x)
+    away = (x - t).abs() >= 0.5
+    return (t + torch.sign(x) * away).long()
+
+
+def _read(flat: torch.Tensor, idx, spatial) -> torch.Tensor:
+    """``flat`` (B, C, D*H*W) at the integer voxel ``idx`` = (iz, iy, ix),
+    each (B, D, H, W) int64; zero where the voxel lies outside."""
+    B, C = flat.shape[:2]
+    valid, offset = None, 0
+    for i, n in zip(idx, spatial):
+        inside = (i >= 0) & (i < n)
+        valid = inside if valid is None else valid & inside
+        offset = offset * n + i.clamp(0, n - 1)
+    out = flat.gather(2, offset.reshape(B, 1, -1).expand(B, C, -1))
+    return torch.where(valid.reshape(B, 1, -1), out, torch.zeros_like(out))
+
+
+def resample(vol: torch.Tensor, coords: torch.Tensor,
+             order: int) -> torch.Tensor:
+    """``vol`` (B, C, D, H, W) read at ``coords`` (B, 3, D, H, W), the
+    source (z, y, x) voxel coordinate of every output voxel: order 1 is
+    trilinear, order 0 the nearest voxel; outside the volume reads 0
+    (``map_coordinates(mode="constant", cval=0)``)."""
+    spatial = vol.shape[2:]
+    flat = vol.reshape(vol.shape[0], vol.shape[1], -1)
+    if order == 0:
+        idx = [_round_half_away(coords[:, a]) for a in range(3)]
+        return _read(flat, idx, spatial).reshape(vol.shape)
+    lower = torch.floor(coords)
+    upper_w = coords - lower
+    lower_w = 1 - upper_w
+    lower = lower.long()
+    nodes = [((lower[:, a], lower_w[:, a]), (lower[:, a] + 1, upper_w[:, a]))
+             for a in range(3)]
+    out = None
+    for (iz, wz), (iy, wy), (ix, wx) in itertools.product(*nodes):
+        w = (wz * wy * wx).reshape(vol.shape[0], 1, -1)
+        term = w * _read(flat, (iz, iy, ix), spatial)
+        out = term if out is None else out + term
+    return out.reshape(vol.shape)
+
+
+def _centred_grid(spatial, device):
+    """Per axis: the centre ``(s - 1) / 2`` and the voxel index minus the
+    centre, broadcastable over (D, H, W)."""
+    centres = [(s - 1) / 2.0 for s in spatial]
+    offsets = [(torch.arange(s, dtype=torch.float32, device=device)
+                - c).view([s if i == a else 1 for i in range(3)])
+               for a, (s, c) in enumerate(zip(spatial, centres))]
+    return centres, offsets
+
+
+def apply_scale(x: torch.Tensor, y: torch.Tensor, factors: torch.Tensor):
+    """Zoom example b by ``factors[b]`` (B, 3) per axis about the patch
+    centre: output voxel g reads the source at ``c + (g - c) / f``. x comes
+    back in float32 whatever came in, y in its own dtype."""
+    B = x.shape[0]
+    spatial = x.shape[2:]
+    centres, offsets = _centred_grid(spatial, x.device)
+    f = factors.to(device=x.device, dtype=torch.float32)
+    coords = torch.stack([
+        (c + o[None] / f[:, a].view(B, 1, 1, 1)).expand(B, *spatial)
+        for a, (c, o) in enumerate(zip(centres, offsets))], dim=1)
+    return resample(x.float(), coords, 1), resample(y, coords, 0)
+
+
+def rotation_matrices(angles_rad: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 3) ``rz @ ry @ rx`` of the Euler angles (B, 3), made in
+    float64 and rounded to float32 once."""
+    a = angles_rad.double()
+    ca, sa = torch.cos(a), torch.sin(a)
+    one, zero = torch.ones_like(ca[:, 0]), torch.zeros_like(ca[:, 0])
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    rx = mat([[one, zero, zero], [zero, ca[:, 0], -sa[:, 0]],
+              [zero, sa[:, 0], ca[:, 0]]])
+    ry = mat([[ca[:, 1], zero, sa[:, 1]], [zero, one, zero],
+              [-sa[:, 1], zero, ca[:, 1]]])
+    rz = mat([[ca[:, 2], -sa[:, 2], zero], [sa[:, 2], ca[:, 2], zero],
+              [zero, zero, one]])
+    return (rz @ ry @ rx).float()
+
+
+def apply_rotation(x: torch.Tensor, y: torch.Tensor,
+                   angles_rad: torch.Tensor):
+    """Rotate example b by the Euler angles ``angles_rad[b]`` (B, 3,
+    radians) about the patch centre: output voxel g reads the source at
+    ``rot^T (g - c) + c`` with ``rot = rz @ ry @ rx`` (the output-to-input
+    map is the inverse, the transpose). x comes back in float32."""
+    B = x.shape[0]
+    spatial = x.shape[2:]
+    centres, offsets = _centred_grid(spatial, x.device)
+    rot_t = rotation_matrices(angles_rad.to(x.device)).transpose(1, 2)
+    coords = []
+    for i in range(3):
+        # one rounding per product and per sum, in a fixed order
+        src = None
+        for j in range(3):
+            term = rot_t[:, i, j].view(B, 1, 1, 1) * offsets[j][None]
+            src = term if src is None else src + term
+        coords.append((src + centres[i]).expand(B, *spatial))
+    coords = torch.stack(coords, dim=1)
+    return resample(x.float(), coords, 1), resample(y, coords, 0)
+
+
 # ---------------------------------------------------------------------------
 # Draws (per example, on the generator's device)
 # ---------------------------------------------------------------------------
@@ -218,9 +336,40 @@ def draw_contrast(generator: torch.Generator, batch: int, factor: float):
     return 1.0 - factor + 2.0 * factor * u[0], -factor + 2.0 * factor * u[1]
 
 
+def draw_scale_factors(generator: torch.Generator, batch: int,
+                       scale_deviation: float) -> torch.Tensor:
+    """(B, 3) zoom factors ``max(1 + dev * N(0, 1), 0.1)``: an unclamped
+    draw can go <= 0, which would mirror or blank the volume."""
+    z = torch.randn((batch, 3), generator=generator,
+                    device=generator.device)
+    return torch.clamp(1.0 + scale_deviation * z, min=0.1)
+
+
+def draw_rotation_angles(generator: torch.Generator, batch: int,
+                         max_angle_deg: float) -> torch.Tensor:
+    """(B, 3) Euler angles in radians, U(-a, a) degrees per axis."""
+    u = torch.rand((batch, 3), generator=generator, device=generator.device)
+    return (-max_angle_deg + 2.0 * max_angle_deg * u) * (np.pi / 180.0)
+
+
 # ---------------------------------------------------------------------------
 # Random transforms of a batch, each example with its own draw
 # ---------------------------------------------------------------------------
+
+
+def random_scale(generator: torch.Generator, x: torch.Tensor,
+                 y: torch.Tensor, scale_deviation: float):
+    """Random anisotropic zoom about the patch centre, per example
+    (trilinear for data, nearest for truth)."""
+    return apply_scale(x, y, draw_scale_factors(generator, x.shape[0],
+                                                scale_deviation))
+
+
+def random_rotation(generator: torch.Generator, x: torch.Tensor,
+                    y: torch.Tensor, max_angle_deg: float):
+    """Random small 3-D rotation about the patch centre, per example."""
+    return apply_rotation(x, y, draw_rotation_angles(generator, x.shape[0],
+                                                     max_angle_deg))
 
 
 def random_flip(generator: torch.Generator, x: torch.Tensor,
@@ -256,9 +405,15 @@ def random_contrast(generator: torch.Generator, x: torch.Tensor,
 
 def augment_batch(generator: torch.Generator, x: torch.Tensor,
                   y: torch.Tensor, *, flip: bool = True,
-                  permute: bool = True, contrast: Optional[float] = None):
+                  permute: bool = True, contrast: Optional[float] = None,
+                  scale_deviation: Optional[float] = None,
+                  rotate: Optional[float] = None):
     """Augment each example of a batch with its own draws, in the JAX
-    package's order: flip, then permute, then contrast."""
+    package's order: scale, rotate, flip, permute, then contrast."""
+    if scale_deviation:
+        x, y = random_scale(generator, x, y, scale_deviation)
+    if rotate:
+        x, y = random_rotation(generator, x, y, rotate)
     if flip:
         x, y = random_flip(generator, x, y)
     if permute:
@@ -270,8 +425,11 @@ def augment_batch(generator: torch.Generator, x: torch.Tensor,
 
 def augment_example(generator: torch.Generator, x: torch.Tensor,
                     y: torch.Tensor, *, flip: bool = True,
-                    permute: bool = True, contrast: Optional[float] = None):
+                    permute: bool = True, contrast: Optional[float] = None,
+                    scale_deviation: Optional[float] = None,
+                    rotate: Optional[float] = None):
     """:func:`augment_batch` of one (C, D, H, W) example and its truth."""
     x, y = augment_batch(generator, x[None], y[None], flip=flip,
-                         permute=permute, contrast=contrast)
+                         permute=permute, contrast=contrast,
+                         scale_deviation=scale_deviation, rotate=rotate)
     return x[0], y[0]

@@ -10,7 +10,7 @@
 Reductions run in float32 whatever the compute dtype. Layout is
 channels-first ``(B, C, D, H, W)``. The collective form
 (``axis_name``, the data-parallel dice) waits for DDP (ROADMAP.md queue 1,
-item 10): a name other than None raises.
+"DDP"): a name other than None raises.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def _collective_ratio(locals_: dict, f, axis_name: Optional[str]
     if axis_name is not None:
         raise NotImplementedError(
             f"axis_name={axis_name!r}: the collective dice needs DDP, not "
-            "ported yet (ROADMAP.md queue 1, item 10)")
+            "ported yet (ROADMAP.md queue 1, DDP)")
     return f(locals_)
 
 

@@ -113,8 +113,9 @@ class DevicePreprocessor:
     """Crop on the host, zoom and normalize on the device, for serving.
 
     One instance per (out_shape, normalization). ``global`` mode takes the
-    training set's (mean, std) as ``moments``; reading them from the
-    dataset waits for the dataset format (ROADMAP.md queue 1, item 9).
+    training set's (mean, std) as ``moments``
+    (``inference/predict.py::load_global_moments`` reads them from the
+    dataset).
     ``transfer_dtype`` bfloat16 halves the raw volume's upload at about
     0.4% relative intensity error before normalization; ``compute_dtype``
     is the dtype handed to the predictor (the model's, so no cast runs

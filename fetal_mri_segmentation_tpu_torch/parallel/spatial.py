@@ -10,8 +10,8 @@ shape; "permute": the 48 cube symmetries, cubic volumes only), with the
 members batched ``tta_chunk`` at a time into one forward each.
 
 Depth-axis sharding over several devices and the GSPMD train and eval
-steps wait for multi-GPU work (ROADMAP.md queue 1, items 10-11); the
-entry points refuse ``--spatial-devices`` above 1.
+steps wait for multi-GPU work (ROADMAP.md queue 1, "DDP" and "spatial
+sharding over more than one device"); the entry points refuse ``--spatial-devices`` above 1.
 """
 
 from __future__ import annotations
@@ -142,7 +142,10 @@ class SpatialPredictor:
     @torch.inference_mode()
     def predict_probabilities(self, data_cdhw) -> torch.Tensor:
         """(C, D, H, W) -> fp32 probabilities (L, D, H, W) on the device;
-        enqueued without a synchronization."""
+        enqueued without a synchronization. The module is put in eval
+        mode at every prediction: a train step on the same module leaves it
+        in training mode."""
+        self.model.eval()
         return self._probs(self._stage(data_cdhw))
 
     def __call__(self, data_cdhw) -> np.ndarray:

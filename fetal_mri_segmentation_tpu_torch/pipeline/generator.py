@@ -7,9 +7,10 @@ patch index list, the batch generator with data-order exact resume
 ``get_training_and_validation_generators``. The JAX package's module
 imports jax through its ``ops`` package, so the port cannot import it;
 tests hold the copies equal to the originals. The data file is any object
-with ``.root.data`` (N, C, D, H, W) and ``.root.truth`` (N, 1, D, H, W): an
-HDF5 file where h5py is installed, or :class:`InMemoryDataFile`
-(``data/memory.py``). Batches come out as channels-first float32 numpy
+with ``.root.data`` (N, C, D, H, W) and ``.root.truth`` (N, 1, D, H, W):
+the dataset that ``data/build.py`` opens (the port's directory of memory
+maps, or the JAX package's HDF5 file where h5py is installed), or
+:class:`InMemoryDataFile` (``data/memory.py``). Batches come out as channels-first float32 numpy
 arrays; augmentation runs on the device in the train step.
 """
 

@@ -2,7 +2,7 @@
 cases on arrival, on the GPU by default (port of the root ``serve.py``).
 
     python -m fetal_mri_segmentation_tpu_torch.serve --config CFG \\
-        --params PARAMS.npz --watch incoming/ [--output served]
+        [--params PARAMS.npz] --watch incoming/ [--output served]
         [--overlap N] [--patch-batch-size N] [--direct] [--tta]
         [--tta-mode {permute,flips}] [--poll S] [--once] [--threshold T]
         [--save-inputs] [--device-preprocess] [--stats-file PATH]
@@ -14,7 +14,10 @@ Idempotent: a case with an existing ``prediction.nii.gz`` is skipped;
 delete it to predict again. SIGINT and SIGTERM stop the server after the
 current sweep. ``--once`` serves the backlog and exits, non-zero when a
 prediction write failed. ``--stats-file`` keeps a JSON heartbeat with the
-served counts and the p50/p95 case latency.
+served counts and the p50/p95 case latency. The weights come from the
+port's checkpoint at ``config.model_file``, or from ``--params`` (an
+exported flax ``.npz``); ``normalization="global"`` reads the training
+moments from ``config.data_file`` once, at start.
 """
 
 from __future__ import annotations
@@ -26,13 +29,13 @@ from typing import Optional
 
 from fetal_mri_segmentation_tpu_torch.config import Config
 from fetal_mri_segmentation_tpu_torch.inference.predict import (
-    build_serving_predictor, load_serving_model, make_device_preprocessor,
-    resolve_tta)
+    build_serving_predictor, load_global_moments, load_serving_model,
+    make_device_preprocessor, resolve_tta)
 from fetal_mri_segmentation_tpu_torch.inference.serve import (
     watch_and_predict)
 
 
-def main(config: Config, params: str, watch: str, output: str = "served",
+def main(config: Config, params: Optional[str], watch: str, output: str = "served",
          overlap: Optional[int] = None, patch_batch_size: int = 8,
          direct: bool = False, tta=False, poll: float = 1.0,
          once: bool = False, threshold: float = 0.5,
@@ -47,7 +50,11 @@ def main(config: Config, params: str, watch: str, output: str = "served",
     predictor = build_serving_predictor(
         model, config, direct=direct, tta=tta, overlap=overlap,
         patch_batch_size=patch_batch_size, device=device)
-    device_pre = (make_device_preprocessor(model, config)
+    # the training distribution's moments, loaded once, shared by the
+    # device preprocessor and the host path
+    moments = (load_global_moments(config.data_file)
+               if config.normalization == "global" else None)
+    device_pre = (make_device_preprocessor(model, config, moments=moments)
                   if device_preprocess else None)
 
     stop = threading.Event()
@@ -65,7 +72,8 @@ def main(config: Config, params: str, watch: str, output: str = "served",
                               poll_interval=poll, once=once, stop=stop,
                               threshold=threshold, save_inputs=save_inputs,
                               stats=stats, stats_file=stats_file,
-                              device_pre=device_pre, verbose=verbose)
+                              device_pre=device_pre, verbose=verbose,
+                              moments=moments)
     finally:
         for sig, handler in handlers.items():
             signal.signal(sig, handler)
@@ -86,8 +94,9 @@ def main(config: Config, params: str, watch: str, output: str = "served",
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", required=True, help="experiment JSON")
-    ap.add_argument("--params", required=True,
-                    help="flattened flax params (.npz)")
+    ap.add_argument("--params", default=None,
+                    help="flattened flax params (.npz); default: the "
+                         "port's checkpoint at the config's model_file")
     ap.add_argument("--watch", required=True,
                     help="directory to watch for incoming cases")
     ap.add_argument("--output", default="served")

@@ -10,8 +10,10 @@ state, so a resumed run continues exactly. Beside it, ``<model_file>
 pipeline's "lockstep" here, as the JAX package writes it), so the
 generators can be fast-forwarded (:meth:`CheckpointIO.peek_epoch`) before
 the state is restored. Both are written to a temporary name and renamed.
-Reading the JAX package's orbax checkpoints waits for a decision on the
-dataset format (ROADMAP.md queue 1, item 9).
+The JAX package's orbax checkpoints are not read (orbax is absent where
+the port runs): ``tools/export_params_npz.py`` writes their params,
+``batch_stats`` and Adam moments as an ``.npz`` that ``train
+--init-params`` and ``predict --params`` load.
 """
 
 from __future__ import annotations

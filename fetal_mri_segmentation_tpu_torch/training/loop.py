@@ -51,7 +51,9 @@ def _weighted_means(metrics: list, weights: list) -> dict:
     step; one device-to-host copy for the whole epoch."""
     if not metrics:
         return {}
-    keys = list(metrics[0])
+    # sorted: the JAX step's metrics come out of jit as a key-sorted dict,
+    # and the log's columns follow this order
+    keys = sorted(metrics[0])
     values = torch.stack([torch.stack([m[k].float() for k in keys])
                           for m in metrics]).cpu().double().numpy()
     w = np.asarray(weights, np.float64)
@@ -77,11 +79,11 @@ def train_model(model, state: TrainState, config,
     if mesh is not None:
         raise NotImplementedError(
             "mesh: multi-device training needs DDP, not ported yet "
-            "(ROADMAP.md queue 1, item 10)")
+            "(ROADMAP.md queue 1, DDP)")
     if device_cache is not None:
         raise NotImplementedError(
             "device_cache: the device-resident case cache is not ported yet "
-            "(ROADMAP.md queue 1, item 9)")
+            "(ROADMAP.md queue 1, the device case cache)")
     n_epochs = n_epochs if n_epochs is not None else config.n_epochs
     batch_size = config.batch_size
     val_batch_size = config.validation_batch_size or batch_size

@@ -83,14 +83,9 @@ def make_train_step(model, config, *,
     of the loss and the metrics."""
     check_supported(config)
     loss_fn = get_loss_fn(config)
-    for key in ("distort", "rotate"):
-        if config.augment and getattr(config, key):
-            raise NotImplementedError(
-                f"{key}={getattr(config, key)!r}: the resampling "
-                "augmentations (random_scale, random_rotation) are not "
-                "ported yet (ROADMAP.md queue 1, item 7)")
     do_augment = config.augment and any(
-        [config.flip, config.permute, config.contrast])
+        [config.flip, config.permute, config.contrast, config.distort,
+         config.rotate])
     if do_augment and generator is None:
         raise ValueError("config.augment is on: make_train_step needs a "
                          "torch.Generator on the model's device")
@@ -107,7 +102,9 @@ def make_train_step(model, config, *,
         if do_augment:
             x, y = augment_batch(generator, x, y, flip=config.flip,
                                  permute=config.permute,
-                                 contrast=config.contrast)
+                                 contrast=config.contrast,
+                                 scale_deviation=config.distort,
+                                 rotate=config.rotate)
         sample_mask = _sample_mask(x, n_valid)
         model.train()
         masks = (model.dropout_masks(x.shape[0], generator, x.device)

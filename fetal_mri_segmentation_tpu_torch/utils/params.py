@@ -13,8 +13,9 @@ for a transposed-conv up-sampling (kernel (2, 2, 2, C_in, C_out)) and the
 D, H, W), ``head.weight``, ``seg{L}.weight``.
 
 ``tools/export_params_npz.py`` writes a trained checkpoint's flattened
-params (and ``batch_stats``) with ``np.savez`` where JAX is installed;
-:func:`from_flax` reads it here.
+params (and ``batch_stats``) with ``np.savez`` where JAX is installed, and
+optax's Adam state under ``opt/``; :func:`from_flax` reads the variables
+here, and :func:`load_npz_train_state` both (``train --init-params``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ import numpy as np
 import torch
 
 _COLLECTIONS = ("params", "batch_stats")
+# tools/export_params_npz.py writes optax's Adam state beside the variables:
+# opt/mu/<param path>, opt/nu/<param path>, opt/count, opt/learning_rate
+OPT_PREFIX = "opt/"
 _VECTORS = ("bias", "scale", "mean", "var")
 
 
@@ -83,6 +87,29 @@ def load_optax_adam_state(optimizer, model, count: int,
             "mu": moments[0][name].to(device=p.device, dtype=p.dtype),
             "nu": moments[1][name].to(device=p.device, dtype=p.dtype)}
     optimizer.set_learning_rate(float(learning_rate))
+
+
+def load_npz_train_state(state, path: str) -> bool:
+    """Start ``state`` (a ``training.state.TrainState``) from an exported
+    ``.npz``: the variables into the model and, where the file holds them
+    (``opt/mu/...``, ``opt/nu/...``, ``opt/count``, ``opt/learning_rate``),
+    optax's Adam moments, step count and learning rate into the optimizer.
+    Returns whether the file held the Adam state."""
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    state.model.load_state_dict(from_flax(
+        {k: v for k, v in flat.items() if not k.startswith(OPT_PREFIX)}))
+    mu = {k[len(OPT_PREFIX) + 3:]: v for k, v in flat.items()
+          if k.startswith(OPT_PREFIX + "mu/")}
+    if not mu:
+        return False
+    nu = {k[len(OPT_PREFIX) + 3:]: v for k, v in flat.items()
+          if k.startswith(OPT_PREFIX + "nu/")}
+    count = int(flat[OPT_PREFIX + "count"])
+    load_optax_adam_state(state.optimizer, state.model, count, mu, nu,
+                          float(flat[OPT_PREFIX + "learning_rate"]))
+    state.step = count
+    return True
 
 
 def flax_param_shapes(config) -> Dict[str, tuple]:

@@ -1,6 +1,8 @@
 """The port keeps its own copies of the JAX package's numpy-only modules
 (``config``, ``utils/nifti.py``, ``utils/io_utils.py``,
-``utils/geometry.py``, ``inference/labelmaps.py``) so that it imports
+``utils/geometry.py``, ``inference/labelmaps.py``,
+``utils/surface_metrics.py``, ``data/normalize.py``'s storage passes, the
+synthetic cases of ``tests/synthetic.py``) so that it imports
 nothing of the JAX package. Each copy is held equal to its original here:
 the same fields, defaults and loaded configs, the same arrays and affines,
 files that either side reads back as the other wrote them."""
@@ -178,3 +180,76 @@ def test_pickle_and_json_helpers_interchange(tmp_path):
         assert json.load(f) == {"x": [1, 2]}
     assert [p.name for p in tmp_path.iterdir()
             if p.suffix == ".tmp"] == []
+
+
+def test_surface_metrics_source_equals_original():
+    """``utils/surface_metrics.py`` is a copy: below the module docstring
+    the two files are the same text."""
+    def body(path):
+        text = Path(path).read_text()
+        return text[text.index("from __future__"):]
+    assert (body(ROOT / "fetal_mri_segmentation_tpu_torch" / "utils"
+                 / "surface_metrics.py")
+            == body(ROOT / "fetal_mri_segmentation_tpu" / "utils"
+                    / "surface_metrics.py"))
+
+
+def test_surface_metrics_equal():
+    from fetal_mri_segmentation_tpu.utils import surface_metrics as jax_sm
+    from fetal_mri_segmentation_tpu_torch.utils import (
+        surface_metrics as port_sm)
+    vol, truth, affine = _case()
+    pred = np.roll(truth, 2, axis=1)
+    spacing = port_sm.voxel_spacing_from_affine(affine)
+    assert spacing == jax_sm.voxel_spacing_from_affine(affine)
+    assert (port_sm.surface_metric_pair(truth > 0, pred > 0, spacing)
+            == jax_sm.surface_metric_pair(truth > 0, pred > 0, spacing))
+
+
+@pytest.mark.parametrize("name", [
+    "normalize_data", "normalize_data_storage",
+    "normalize_data_storage_per_volume", "normalize_data_storage_windowed",
+    "window_intensities", "normalize_case"])
+def test_normalize_source_equals_original(name):
+    """Each function of the port's ``data/normalize.py`` has its
+    original's code (comments and docstrings aside)."""
+    import ast
+    import inspect
+
+    from fetal_mri_segmentation_tpu.data import normalize as jax_norm
+    from fetal_mri_segmentation_tpu_torch.data import (
+        normalize as port_norm)
+
+    def code(fn):
+        tree = ast.parse(inspect.getsource(fn))
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if (isinstance(body, list) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                body.pop(0)  # the docstring
+        return ast.dump(tree)
+    assert code(getattr(port_norm, name)) == code(getattr(jax_norm, name))
+
+
+@pytest.mark.parametrize("modalities", [("volume",), ("t2", "adc")])
+def test_synthetic_cases_equal(tmp_path, modalities):
+    from fetal_mri_segmentation_tpu_torch.data import synthetic as port_syn
+    from tests import synthetic as test_syn
+    for seed in range(3):
+        for a, b in zip(port_syn.make_ellipsoid_case((12, 14, 10), seed),
+                        test_syn.make_ellipsoid_case((12, 14, 10), seed)):
+            np.testing.assert_array_equal(a, b)
+    got = port_syn.write_synthetic_dataset(str(tmp_path / "port"), 2,
+                                           (12, 12, 12), modalities)
+    want = test_syn.write_synthetic_dataset(str(tmp_path / "test"), 2,
+                                            (12, 12, 12), modalities)
+    assert ([[os.path.relpath(f, tmp_path / "port") for f in c] for c in got]
+            == [[os.path.relpath(f, tmp_path / "test") for f in c]
+                for c in want])
+    for case_got, case_want in zip(got, want):
+        for f, g in zip(case_got, case_want):
+            a, b = port_nifti.load_nifti(f), jax_nifti.load_nifti(g)
+            np.testing.assert_array_equal(a.get_fdata(), b.get_fdata())
+            np.testing.assert_array_equal(a.affine, b.affine)

@@ -91,7 +91,7 @@ def test_hard_dice_matches_jax(case):
 
 def test_collective_dice_is_not_ported_yet():
     t, p = map(torch.from_numpy, _pair(6))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="DDP"):
         TD.dice_coefficient(t, p, axis_name="data")
 
 

@@ -4,7 +4,12 @@ itself, every port module imports, a tiny bf16 predict runs on the CPU
 through the kernel routes, a direct predict with flips TTA, a
 ``DevicePreprocessor`` and one ``serve --once`` sweep run,
 ``train_model`` trains two epochs from an in-memory data file, and
-Isensee2017 and a BatchNorm U-Net each predict and take two train steps;
+Isensee2017 and a BatchNorm U-Net each predict and take two train steps,
+and the experiment path runs end to end (a native dataset built from NIfTI
+cases by ``train.main --device cpu`` for one epoch with scale and rotation
+augmentation, the validation-set ``predict.main`` from the port's own
+checkpoint, ``evaluate.main``, ``ensemble.main``; an HDF5 file at
+``config.data_file`` raises and names the converter);
 ``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone."""
 
@@ -167,6 +172,57 @@ for kw in ({"model_name": "isensee", "n_segmentation_levels": 2},
     for _ in range(2):
         metrics = step(mstate, xb, yb)
     assert torch.isfinite(metrics["loss"]) and mstate.step == 2
+# the experiment path: synthetic cases -> train (builds the native dataset)
+# -> predict the validation split from the checkpoint -> evaluate -> ensemble
+import csv
+from fetal_mri_segmentation_tpu_torch import ensemble, evaluate, predict, train
+from fetal_mri_segmentation_tpu_torch.data.build import open_data_file
+from fetal_mri_segmentation_tpu_torch.data.synthetic import (
+    write_synthetic_dataset)
+
+work = tempfile.mkdtemp()
+write_synthetic_dataset(os.path.join(work, "cases"), n_cases=4,
+                        shape=(20, 20, 20))
+ecfg = Config(image_shape=(16, 16, 16), patch_shape=(8, 8, 8), depth=2,
+              n_base_filters=4, batch_size=4, n_epochs=1,
+              compute_dtype="float32", validation_patch_overlap=2,
+              training_patch_start_offset=(2, 2, 2), distort=0.25,
+              rotate=15.0, contrast=0.1, validation_split=0.5,
+              data_file=os.path.join(work, "data"),
+              model_file=os.path.join(work, "model.ckpt"),
+              training_file=os.path.join(work, "t.pkl"),
+              validation_file=os.path.join(work, "v.pkl"),
+              training_log=os.path.join(work, "training.log"))
+estate = train.main(ecfg, os.path.join(work, "cases"), verbose=False,
+                    device="cpu")
+assert estate.step > 0 and os.path.isdir(ecfg.data_file)
+with open_data_file(ecfg.data_file) as f:
+    assert len(f) == 4 and f.subject_ids[0] == "case_0"
+assert predict.main(ecfg, output_dir=os.path.join(work, "pred"),
+                    device="cpu", verbose=False) == 2
+rows = evaluate.main(os.path.join(work, "pred"), [1],
+                     os.path.join(work, "scores.csv"), plot=False,
+                     surface_metrics=True)
+assert len(rows) == 2
+with open(os.path.join(work, "scores.csv")) as f:
+    assert len(list(csv.reader(f))) == 3
+for tag in ("a", "b"):
+    predict.main(ecfg, output_dir=os.path.join(work, "prob_" + tag),
+                 device="cpu", verbose=False, prob_map=True,
+                 direct=tag == "b")
+assert ensemble.main([os.path.join(work, "prob_a"),
+                      os.path.join(work, "prob_b")],
+                     os.path.join(work, "ens"), labels=[1]) == 2
+# an HDF5 file cannot be read here (h5py is refused): the error names the
+# converter
+open(os.path.join(work, "data.h5"), "wb").close()
+try:
+    open_data_file(os.path.join(work, "data.h5"))
+except ImportError as e:
+    assert "--convert" in str(e)
+else:
+    raise AssertionError("an HDF5 dataset opened without h5py")
+
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")
@@ -183,7 +239,7 @@ def _env():
 def test_port_imports_and_predicts_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
                           env=_env(), capture_output=True, text=True,
-                          timeout=240)
+                          timeout=400)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
 

@@ -203,7 +203,8 @@ def test_make_device_preprocessor_follows_the_model():
     gcfg = Config(image_shape=(16, 16, 16), depth=2, n_base_filters=4,
                   normalization="global")
     model = build_model(gcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # no moments handed in and no dataset at config.data_file to read them
+    with pytest.raises(ValueError, match="load_global_moments"):
         make_device_preprocessor(model, gcfg)
     assert make_device_preprocessor(model, gcfg, moments=(12.5, 3.25)
                                     )._host_moments == (12.5, 3.25)

@@ -125,5 +125,5 @@ def test_refusals(served):
     with pytest.raises(ValueError, match="image_shape"):
         pred(np.zeros((1, 8, 8, 8), np.float32))
     global_cfg = Config(normalization="global", image_shape=cfg.image_shape)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="load_global_moments"):
         preprocess_case("unused", global_cfg)

@@ -263,25 +263,29 @@ def test_eval_step_masks_the_padded_tail_and_reports_label_dice():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"distort": 0.25}, "item 7"), ({"rotate": 15.0}, "item 7"),
-    ({"num_devices": 4}, "item 10"), ({"spatial_devices": 2}, "item 11")])
+    ({"distort": 0.25}, None), ({"rotate": 15.0}, None),
+    ({"num_devices": 4}, "DDP"), ({"spatial_devices": 2}, "spatial")])
 def test_check_supported_refuses_what_is_not_ported(kw, item):
-    """The train step refuses all four; ``check_supported`` (which
-    ``build_model`` runs) the mesh keys, the augmentations being the train
-    step's alone."""
+    """The train step and ``check_supported`` (which ``build_model`` runs)
+    refuse the mesh keys by name; the resampling augmentations are ported,
+    so a step is made for them (and needs a generator)."""
     cfg = Config(**kw)
+    model = build_model(Config(depth=2, n_base_filters=8), "cpu")
+    if item is None:
+        check_supported(cfg)
+        make_train_step(model, cfg, generator=torch.Generator())
+        with pytest.raises(ValueError, match="torch.Generator"):
+            make_train_step(model, Config(flip=False, permute=False, **kw))
+        return
     with pytest.raises(NotImplementedError, match=item):
-        make_train_step(build_model(Config(depth=2, n_base_filters=8),
-                                    "cpu"), cfg,
-                        generator=torch.Generator())
-    if item != "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            check_supported(cfg)
+        make_train_step(model, cfg, generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match=item):
+        check_supported(cfg)
 
 
 def test_augmentations_refused_for_training_only():
     """A serving config may carry training-only keys, and a train step with
-    augmentation off ignores them."""
+    augmentation off ignores them (it needs no generator)."""
     check_supported(Config(distort=0.25, rotate=15.0))
     make_train_step(build_model(Config(depth=2, n_base_filters=8), "cpu"),
                     Config(distort=0.25, rotate=15.0, augment=False))

@@ -93,8 +93,8 @@ def test_max_pool_drops_the_remainder_like_valid_pooling():
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    ({"num_devices": 4}, NotImplementedError, "item 10"),
-    ({"spatial_devices": 2}, NotImplementedError, "item 11"),
+    ({"num_devices": 4}, NotImplementedError, "DDP"),
+    ({"spatial_devices": 2}, NotImplementedError, "spatial"),
     ({"fold_level0": (1, 1, 2)}, ValueError, "fold_level0"),
 ])
 def test_build_model_refuses_what_is_not_ported(kw, error, match):
