@@ -69,7 +69,27 @@ Phases, one line each (or one line per checked shape):
    ``direct`` (its probabilities and the switches-off path's each held to
    an fp32 model); ``evaluate.main`` scores that tree and
    ``ensemble.main`` merges two probability trees. Launches exactly 6 / 4
-   / 3 per forward of each counted run.
+   / 3 per forward of each counted run;
+9. scale: the same config on six cases, training at scale. ``train.main``
+   for two epochs with ``device_case_cache`` "on" against "off" from the
+   same seed and weights (per-epoch loss and dice within
+   ``SCALE_METRIC_TOL``, beside the spread of two host-staged runs), every
+   batch of an epoch gathered on the card against the same batch staged
+   from the host (x and y bit for bit); the cache's build seconds and
+   bytes, the bytes a step sends to the card in each mode, the gather's
+   milliseconds, patches/s of an epoch cached against host-staged and the
+   step's peak memory with the cache resident; a partial cache (the
+   epoch's multiset of patches against the host pipeline's, a run
+   interrupted after one epoch and resumed against an uninterrupted one);
+   then data-parallel training: one rank that joins an NCCL group through
+   ``initialize_distributed``, and two ranks started as processes (sharing
+   the card over gloo where there is one card, over NCCL on a card each
+   where there are more), each holding ``make_dp_train_step`` on a global
+   batch of 6 to the single-device step (loss, dice, every parameter's
+   change, BatchNorm's buffers), and ``train.main`` with ``num_devices=2``
+   and the cache on for two epochs. Launches exactly 6 / 4 / 3 per forward
+   of every counted run, the ranks' own included. A rank's non-zero exit
+   or its time limit fails the script.
 
 The kernel phase also checks every kernel layer of the direct 128^3
 forward at batch 1 and at the TTA chunks of 2 and 8, and prints each
@@ -1706,6 +1726,564 @@ def experiment_phase(torch, work: Path) -> dict:
     return launches
 
 
+# Scale phase: two runs of the same training differ only by what the card
+# leaves undetermined (cuDNN's backward kernels sum with atomics; the hand
+# kernels' forward is deterministic), so the cached run is held to the
+# host-staged run by the spread two host-staged runs show, with this
+# ceiling on the per-epoch loss and dice; the phase prints both. Measured
+# on the H100 (NVIDIA H100 80GB HBM3, 700 W): see PERF.md section 6.
+SCALE_METRIC_TOL = 1e-3
+# A data-parallel step against the single-device step on the same global
+# batch, from the same weights with plain SGD at learning rate 1 (the
+# parameter change is minus the gradient): each parameter's change within
+# GRAD_REL_TOL relative L2 (two ranks of 3 samples and one device of 6 pick
+# other cuDNN algorithms and sum in another order), the loss and dice within
+# LOSS_TOL, BatchNorm's buffers within this relative L2. With BatchNorm the
+# two bf16 steps are not held to each other but each to an fp32 model, as
+# behind every norm (NORM_PROB_TOL above): sync BatchNorm takes its moments
+# as sums over a count, the single-device layer as means, the same numbers
+# to 1e-7, and each norm rescales the one-ulp bf16 differences that follow
+# (one rank over NCCL against the plain step: parameter changes up to 0.098
+# apart, both as far from fp32; NVIDIA H100 80GB HBM3, 700 W). The
+# data-parallel step may be no further from fp32 than twice the
+# single-device step is, or than the tolerance.
+DP_BUFFER_REL_TOL = 1e-3
+RANK_TIMEOUT_S = 300.0
+
+
+def _scale_config(work: Path, **kw):
+    import dataclasses
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+
+    config = Config.load(str(ROOT / "configs" / "fetal_unet.json"))
+    keys = dict(use_pallas_conv=True, use_pallas_dec0=True, n_epochs=2,
+                initial_learning_rate=EXPERIMENT_LR, num_devices=1,
+                data_file=str(work / "fetal_data"),
+                training_file=str(work / "training_ids.pkl"),
+                validation_file=str(work / "validation_ids.pkl"))
+    keys.update(kw)
+    return dataclasses.replace(config, **keys)
+
+
+def _dp_step_check(torch, mesh, label: str) -> dict:
+    """One data-parallel step over ``mesh`` against the single-device step
+    on the same global batch of 6, from the same weights, kernels on, with
+    and without BatchNorm; exact launch counts of the data-parallel step.
+    Every rank runs both and raises on a difference."""
+    import dataclasses
+
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step)
+    from fetal_mri_segmentation_tpu_torch.training.state import TrainState
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+    out = {}
+    for bn in (False, True):
+        cfg = dataclasses.replace(
+            _scale_config(Path(".")), augment=False, batch_normalization=bn)
+        weights = from_flax(init_flax_like(cfg, seed=0))
+        x_np, y_np = train_batch(cfg)
+        x = torch.from_numpy(x_np).to(mesh.device)
+        y = torch.from_numpy(y_np).to(mesh.device)
+        results = {}
+        for kind in ("dp", "one") + (("fp32",) if bn else ()):
+            kcfg = cfg if kind != "fp32" else dataclasses.replace(
+                cfg, use_pallas_conv=False, use_pallas_dec0=False,
+                compute_dtype="float32")
+            torch.backends.cudnn.allow_tf32 = kind != "fp32"
+            model = build_model(kcfg, mesh.device)
+            model.load_state_dict(weights)
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            before_norm = {f"{n}.conv.bias"
+                           for n, m in model.named_modules()
+                           if isinstance(m, ConvBlock) and m.norm_key}
+            state = TrainState(model, torch.optim.SGD(model.parameters(),
+                                                      lr=1.0))
+            step = (make_dp_train_step(model, kcfg, mesh) if kind == "dp"
+                    else make_train_step(model, kcfg))
+            for fn in counters:
+                fn.launches = 0
+            metrics = step(state, x, y, cfg.batch_size)
+            torch.cuda.synchronize()
+            torch.backends.cudnn.allow_tf32 = True
+            results[kind] = dict(
+                launches={fn.__name__: fn.launches for fn in counters},
+                loss=float(metrics["loss"]), dice=float(metrics["dice"]),
+                change={n: (p.detach() - before[n]).float()
+                        for n, p in model.named_parameters()},
+                buffers={n: b.detach().float().clone()
+                         for n, b in model.named_buffers()})
+            del model, state, step
+            torch.cuda.empty_cache()
+        dp, one = results["dp"], results["one"]
+        ref = results.get("fp32", one)
+
+        def rel(a, b, scale=None):
+            return ((a - b).norm() / (b if scale is None else scale
+                                      ).norm().clamp_min(1e-30)).item()
+
+        def margins(kind, tol):
+            """Per tensor: (how far the data-parallel step is from the
+            reference over what it may be, both distances, the name). The
+            reference is the single-device step, or with BatchNorm the fp32
+            model, from which the single-device bf16 step has a distance of
+            its own. A conv bias before a norm has a zero gradient up to
+            rounding (the norm takes away a per-channel constant): its
+            change is held to the scale of its block's weight's change."""
+            rows = []
+            for n, t in dp[kind].items():
+                scale = (ref["change"][n[:-len("bias")] + "weight"]
+                         if kind == "change" and n in before_norm else None)
+                r_dp = rel(t, ref[kind][n], scale)
+                r_one = rel(one[kind][n], ref[kind][n], scale)
+                rows.append((r_dp / max(2 * r_one, tol), r_dp, r_one, n))
+            return sorted(rows, reverse=True) or [(0.0, 0.0, 0.0, "none")]
+
+        ranked = margins("change", GRAD_REL_TOL)
+        worst, worst_buffer = ranked[0], margins("buffers",
+                                                 DP_BUFFER_REL_TOL)[0]
+        out[f"batchnorm={bn}"] = dict(
+            launches=dp["launches"], loss=dp["loss"], dice=dp["dice"],
+            loss_diff=abs(dp["loss"] - one["loss"]),
+            dice_diff=abs(dp["dice"] - one["dice"]),
+            worst_change=worst, worst_buffer=worst_buffer)
+        against = ("the fp32 model (the single-device bf16 step's distance "
+                   "beside it)" if bn else "the single-device step")
+        print(f"scale {label} rank {mesh.rank} of {mesh.size}, batchnorm "
+              f"{bn}: loss {dp['loss']:.6g} against the single-device "
+              f"step's {one['loss']:.6g} (tol {LOSS_TOL}), dice |diff| "
+              f"{abs(dp['dice'] - one['dice']):.6g}; relative L2 of each "
+              f"parameter's change against {against}, the three nearest "
+              f"their bound max(2 x the single-device distance, "
+              f"{GRAD_REL_TOL}): " + ", ".join(
+                  f"{n} {r_dp:.6g} ({r_one:.6g})"
+                  for _, r_dp, r_one, n in ranked[:3])
+              + f"; the BatchNorm buffer nearest its bound max(2 x the "
+              f"single-device distance, {DP_BUFFER_REL_TOL}): "
+              f"{worst_buffer[3]} {worst_buffer[1]:.6g} "
+              f"({worst_buffer[2]:.6g}); launches {dp['launches']}",
+              flush=True)
+        if dp["launches"] != PER_FORWARD or one["launches"] != PER_FORWARD:
+            raise AssertionError(f"{label}: launches {dp['launches']} and "
+                                 f"{one['launches']}, not {PER_FORWARD}")
+        if not (abs(dp["loss"] - one["loss"]) <= LOSS_TOL
+                and abs(dp["dice"] - one["dice"]) <= LOSS_TOL
+                and worst[0] <= 1.0 and worst_buffer[0] <= 1.0):
+            raise AssertionError(f"{label}, batchnorm {bn}: the "
+                                 "data-parallel step differs from the "
+                                 f"single-device step: {out}")
+        if bn and not dp["buffers"]:
+            raise AssertionError("no BatchNorm buffers in the model")
+    return out
+
+
+def _scale_rank(local_rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of the ranks that share the card (over gloo) or own one each
+    (NCCL, where there are enough cards): the data-parallel step check."""
+    import torch
+
+    from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import (
+        make_mesh)
+    from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+        default_backend, initialize_distributed, rank_environment,
+        shutdown_distributed)
+
+    os.environ.update(rank_environment(local_rank, world, port))
+    initialize_distributed(device="cuda", share_devices=True,
+                           timeout_s=RANK_TIMEOUT_S)
+    try:
+        mesh = make_mesh(world, device="cuda", share_devices=True)
+        backend = default_backend("cuda")
+        result = _dp_step_check(torch, mesh, f"{world} ranks over {backend}")
+        result["backend"] = backend
+        with open(Path(out_dir) / f"rank{local_rank}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        shutdown_distributed()
+
+
+def scale_phase(torch, work: Path, smi: str) -> dict:
+    """Training at scale (``configs/fetal_unet.json`` at full width, both
+    kernel switches on, six 160x160x110 cases): the device case cache
+    against host staging through ``train.main``, one batch bit for bit, a
+    partial cache (the epoch's patches, an interrupted and resumed run),
+    what the cache costs and buys, then data-parallel training: one rank
+    over NCCL against the plain step, two ranks against one, and
+    ``train.main`` on two ranks with the cache."""
+    import collections
+    import csv
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch import train
+    from fetal_mri_segmentation_tpu_torch.data.build import open_data_file
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.ops.patches import (
+        get_patch_from_3d_data)
+    from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import (
+        make_mesh)
+    from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+        free_port, initialize_distributed, rank_environment, run_ranks,
+        shutdown_distributed)
+    from fetal_mri_segmentation_tpu_torch.pipeline import device_cache as dc
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        create_patch_index_list, data_generator,
+        get_training_and_validation_generators)
+    from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
+        CheckpointIO)
+    from fetal_mri_segmentation_tpu_torch.training.loop import train_model
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        pad_batch)
+    from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    torch.backends.cudnn.allow_tf32 = True  # as the train phase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+    launches = {}
+
+    def zero_counts():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def log_rows(path):
+        with open(path) as f:
+            # a resumed run logs its replayed epochs again: the last wins
+            return {r["epoch"]: r for r in csv.DictReader(f)}
+
+    def run_config(tag, **kw):
+        (work / tag).mkdir(exist_ok=True)
+        return _scale_config(
+            work, model_file=str(work / tag / "model.ckpt"),
+            training_log=str(work / tag / "training.log"), **kw)
+
+    # 1. the cache against host staging, through train.main: the same seed
+    # and weights, two epochs each; host staging twice for the spread
+    write_cases(work / "cases", n=6)
+    runs = {}
+    for tag, knob in (("host", "off"), ("host again", "off"),
+                      ("cached", "on")):
+        config = run_config(tag.replace(" ", "_"), device_case_cache=knob)
+        zero_counts()
+        t0 = time.perf_counter()
+        state = train.main(config, str(work / "cases"), seed=0,
+                           device="cuda", verbose=tag == "cached")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rows = log_rows(config.training_log)
+        runs[tag] = dict(rows=rows, seconds=seconds, steps=state.step)
+        launches[f"train.main {tag}"] = counts()
+        del state
+        torch.cuda.empty_cache()
+    with open_data_file(config.data_file) as f:
+        _, n_t, _, n_v = get_training_and_validation_generators(
+            f, batch_size=config.batch_size, n_labels=config.n_labels,
+            training_keys_file=config.training_file,
+            validation_keys_file=config.validation_file,
+            patch_shape=config.patch_shape,
+            validation_batch_size=config.validation_batch_size,
+            validation_patch_overlap=config.validation_patch_overlap,
+            training_patch_start_offset=config.training_patch_start_offset,
+            skip_blank=config.skip_blank, seed=0)
+    want = {k: n * config.n_epochs * (n_t + n_v)
+            for k, n in PER_FORWARD.items()}
+    keys = ("loss", "dice_coefficient", "val_loss", "val_dice_coefficient")
+
+    def spread(a, b):
+        return max(abs(float(runs[a]["rows"][e][k])
+                       - float(runs[b]["rows"][e][k]))
+                   for e in ("0", "1") for k in keys)
+
+    host_spread, cached_diff = spread("host", "host again"), spread(
+        "host", "cached")
+    for tag, run in runs.items():
+        print(f"scale train.main {tag}: {n_t} + {n_v} steps per epoch; "
+              + "; ".join(
+                  f"epoch {e} loss {float(r['loss']):.8g} dice "
+                  f"{float(r['dice_coefficient']):.8g} val_loss "
+                  f"{float(r['val_loss']):.8g} "
+                  f"{float(r['patches_per_sec']):.6g} patches/s "
+                  f"{float(r['epoch_time_sec']):.4f} s"
+                  for e, r in sorted(run["rows"].items()))
+              + f"; {run['seconds']:.4f} s in all; launches "
+              f"{launches[f'train.main {tag}']}", flush=True)
+        if launches[f"train.main {tag}"] != want or run["steps"] != 2 * n_t:
+            raise AssertionError(f"train.main {tag} launched "
+                                 f"{launches[f'train.main {tag}']}, not "
+                                 f"{want}")
+    print(f"scale cache against host staging: largest |difference| of a "
+          f"per-epoch loss or dice {cached_diff:.6g}; two host-staged runs "
+          f"differ by {host_spread:.6g}; tol {SCALE_METRIC_TOL}", flush=True)
+    if not max(cached_diff, host_spread) <= SCALE_METRIC_TOL:
+        raise AssertionError(f"cached against host {cached_diff}, host "
+                             f"against host {host_spread}")
+
+    # 2. one batch, gathered on the card and staged from the host: x and y
+    # bit for bit; what the cache costs (seconds, bytes) and the gather's
+    # time; the step's peak memory with the cache resident
+    config = run_config("cached", device_case_cache="on")
+    data_file = open_data_file(config.data_file)
+    training = [int(i) for i in pickle_load(config.training_file)]
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cache, tgen, _ = dc.maybe_build_device_cache(
+        data_file, config, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    allocated_after = torch.cuda.memory_allocated()
+    host_gen = data_generator(
+        data_file, training, batch_size=config.batch_size,
+        n_labels=config.n_labels, labels=config.labels,
+        patch_shape=config.patch_shape,
+        patch_start_offset=config.training_patch_start_offset,
+        skip_blank=config.skip_blank, seed=0)
+    gather_convert = dc._make_gather_convert(config, cache.margin_lo)
+    for _ in range(n_t):
+        xh, yh, n_valid = pad_batch(*next(host_gen), config.batch_size)
+        rows, corners, n_valid_c = next(tgen)
+        idx = torch.from_numpy(np.concatenate([rows[:, None], corners], 1)
+                               ).cuda()
+        xc, yc = gather_convert(cache.data_stack, cache.truth_stack,
+                                idx[:, 0], idx[:, 1:], n_valid_c)
+        xh = torch.from_numpy(xh).to(torch.bfloat16).cuda()
+        yh = torch.from_numpy(yh.astype(np.uint8)).cuda().float()
+        if n_valid != n_valid_c or xc.dtype != torch.bfloat16 or not (
+                torch.equal(xc, xh) and torch.equal(yc, yh)):
+            raise AssertionError("a gathered batch differs from the "
+                                 "host-staged batch")
+    gather_ms = time_ms(torch, lambda: gather_convert(
+        cache.data_stack, cache.truth_stack, idx[:, 0], idx[:, 1:], n_valid))
+    host_bytes = xh.numel() * 2 + yh.numel()  # bf16 x and uint8 y
+    idx_bytes = idx.numel() * idx.element_size()
+    model = build_model(config, "cuda")
+    model.load_state_dict(from_flax(init_flax_like(config, seed=0)))
+    state = create_train_state(model, config)
+    step = dc.make_cached_train_step(
+        model, config, cache.margin_lo,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def cached_step():
+        return step(state, cache.data_stack, cache.truth_stack, idx[:, 0],
+                    idx[:, 1:], n_valid)
+
+    cached_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, cached_step)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    epoch = {tag: runs[tag]["rows"]["1"] for tag in ("host", "cached")}
+    print(f"scale what the cache buys ({smi}): built in {build_s:.4f} s, "
+          f"{cache.nbytes} bytes on the card ({len(cache.row_of)} cases "
+          f"padded to {tuple(cache.data_stack.shape[2:])}, bf16 data and "
+          f"uint8 truth; memory_allocated {allocated_before} before, "
+          f"{allocated_after} after); bytes sent to the card per step: "
+          f"{idx_bytes} cached, {host_bytes} host-staged; the gather and "
+          f"label conversion {gather_ms:.6g} ms per batch of "
+          f"{config.batch_size}; a cached train step {step_ms:.6g} ms; "
+          f"second epoch through train_model: "
+          f"{float(epoch['cached']['patches_per_sec']):.6g} patches/s "
+          f"cached ({float(epoch['cached']['epoch_time_sec']):.4f} s) "
+          f"against {float(epoch['host']['patches_per_sec']):.6g} "
+          f"host-staged ({float(epoch['host']['epoch_time_sec']):.4f} s), "
+          f"{n_t} steps of {step_ms:.6g} ms being "
+          f"{n_t * step_ms / 1e3:.4f} s on the card; peak memory of the "
+          f"step with the cache resident {peak} bytes "
+          f"({peak / 2**30:.6g} GiB; {(peak - cache.nbytes) / 2**30:.6g} "
+          f"GiB without the cache's bytes; the allocator holds {reserved} "
+          f"bytes reserved); hbm_budget_bytes now "
+          f"{dc.hbm_budget_bytes('cuda')} with a reserve of "
+          f"{dc.HBM_STEP_RESERVE_BYTES}", flush=True)
+    if cache.nbytes != dc.estimate_cache_bytes(
+            data_file, len(cache.row_of), cache.margin_lo,
+            tuple(p - s - lo for p, s, lo in zip(
+                cache.data_stack.shape[2:], config.image_shape,
+                cache.margin_lo))) or not (
+            allocated_after - allocated_before >= cache.nbytes):
+        raise AssertionError(f"cache bytes {cache.nbytes}, allocated "
+                             f"{allocated_after - allocated_before}")
+    if peak - cache.nbytes > dc.HBM_STEP_RESERVE_BYTES:
+        raise AssertionError(f"the step's peak {peak - cache.nbytes} "
+                             f"exceeds HBM_STEP_RESERVE_BYTES")
+    del model, state, step, cache, tgen
+    torch.cuda.empty_cache()
+
+    # 3. a partial cache: half of the dataset's bytes as the budget
+    est = dc.estimate_cache_bytes(
+        data_file, 6, *dc.plan_margins(
+            config.image_shape, config.patch_shape,
+            config.validation_patch_overlap,
+            config.training_patch_start_offset))
+    budget = int(est * 0.55)
+
+    def partial_run(tag, n_epochs, resume=False):
+        cfg = run_config(tag, device_case_cache="auto", n_epochs=n_epochs)
+        io = CheckpointIO(cfg.model_file)
+        start = (io.peek_epoch() or 0) if resume else 0
+        order = io.peek_data_order() if resume else None
+        if resume and (start != 1 or (order or {}).get("mode") != "partial"):
+            raise AssertionError(f"resume from epoch {start}, order {order}")
+        built = dc.maybe_build_device_cache(
+            data_file, cfg, seed=0, budget_bytes=budget, device="cuda",
+            train_skip_batches=start * n_t, val_skip_batches=start * n_v,
+            resume_data_order=order, verbose=tag == "partial")
+        if built is None or not built[0].partial:
+            raise AssertionError("the budget did not give a partial cache")
+        cache, tg, vg = built
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(from_flax(init_flax_like(cfg, seed=0)))
+        zero_counts()
+        state = train_model(model, create_train_state(model, cfg), cfg, tg,
+                            vg, n_t, n_v, seed=0, device_cache=cache,
+                            verbose=False)
+        torch.cuda.synchronize()
+        ran = n_epochs - start
+        got, want = counts(), {k: n * ran * (n_t + n_v)
+                               for k, n in PER_FORWARD.items()}
+        if got != want or state.step != n_epochs * n_t:
+            raise AssertionError(f"{tag}: launches {got}, not {want}")
+        launches[f"partial {tag}{' resumed' if resume else ''}"] = got
+        return cfg, cache.resident_cases
+
+    cfg_whole, resident = partial_run("partial", 2)
+    partial_run("partial_interrupted", 1)
+    cfg_resumed, resident_again = partial_run("partial_interrupted", 2,
+                                              resume=True)
+    whole, resumed = (log_rows(c.training_log)
+                      for c in (cfg_whole, cfg_resumed))
+    resume_diff = max(abs(float(whole[e][k]) - float(resumed[e][k]))
+                      for e in ("0", "1") for k in keys)
+    # the first generator epoch's patches, host pipeline against partial
+    rng = np.random.default_rng((0, 0))
+    epoch_list = create_patch_index_list(
+        training, tuple(config.image_shape), config.patch_shape, 0,
+        config.training_patch_start_offset, rng)
+    kept = sum(bool(np.any(get_patch_from_3d_data(
+        data_file.root.truth[c], config.patch_shape, corner)))
+        for c, corner in epoch_list) if config.skip_blank else len(epoch_list)
+    n_batches = -(-kept // config.batch_size)
+    gen_kw = dict(batch_size=config.batch_size,
+                  patch_shape=config.patch_shape,
+                  patch_start_offset=config.training_patch_start_offset,
+                  skip_blank=config.skip_blank, seed=0)
+    host_gen = data_generator(data_file, training, n_labels=config.n_labels,
+                              labels=config.labels, **gen_kw)
+    part_gen = dc.partial_index_batch_generator(
+        data_file, training, {c: r for r, c in enumerate(resident)},
+        n_labels=config.n_labels, labels=config.labels, **gen_kw)
+
+    def digest(patch):
+        return hashlib.sha1(np.ascontiguousarray(
+            patch, dtype=np.float32).tobytes()).hexdigest()
+
+    host_set, part_set = collections.Counter(), collections.Counter()
+    kinds = collections.Counter()
+    for _ in range(n_batches):
+        host_set.update(digest(p) for p in next(host_gen)[0])
+        kind, a, b, n_valid = next(part_gen)
+        kinds[kind] += n_valid
+        if kind == "host":
+            part_set.update(digest(p) for p in a[:n_valid])
+        else:
+            part_set.update(
+                digest(get_patch_from_3d_data(
+                    np.asarray(data_file.root.data[resident[int(r)]]),
+                    config.patch_shape, c))
+                for r, c in zip(a[:n_valid], b[:n_valid]))
+    print(f"scale partial cache: budget {budget} of {est} bytes, cases "
+          f"{resident} of 6 resident; the first epoch's {kept} patches in "
+          f"{n_batches} batches: {dict(kinds)} by kind, the multiset of "
+          f"patches equal to the host pipeline's: {host_set == part_set}; "
+          f"2 epochs uninterrupted against 1 + resumed: largest "
+          f"|difference| of a per-epoch loss or dice {resume_diff:.6g} "
+          f"<= tol {SCALE_METRIC_TOL}", flush=True)
+    if host_set != part_set or sum(host_set.values()) != kept or not (
+            kinds["idx"] and kinds["host"]):
+        raise AssertionError(f"partial epoch: {dict(kinds)}, {kept} kept")
+    if resident != resident_again or not resume_diff <= SCALE_METRIC_TOL:
+        raise AssertionError(f"resumed partial run: {resume_diff}, resident "
+                             f"{resident} then {resident_again}")
+    data_file.close()
+
+    # 4. data parallel. One rank that joins an NCCL group as a launcher
+    # would have it, against the plain step
+    launcher = rank_environment(0, 1, free_port())
+    os.environ.update(launcher)
+    try:
+        initialize_distributed(device="cuda")
+        mesh = make_mesh(1, device="cuda")
+        if mesh.group is None or torch.distributed.get_backend() != "nccl":
+            raise AssertionError("no NCCL group of one rank")
+        one_rank = _dp_step_check(torch, mesh, "1 rank over nccl")
+    finally:
+        shutdown_distributed()
+        for key in launcher:
+            os.environ.pop(key, None)
+    launches["dp step, 1 rank (nccl)"] = one_rank["batchnorm=False"][
+        "launches"]
+    # two ranks: on one card they share it over gloo (NCCL refuses two ranks
+    # on one device), on two or more cards each takes its own over NCCL
+    (work / "ranks").mkdir()
+    t0 = time.perf_counter()
+    run_ranks(_scale_rank, 2, (2, free_port(), str(work / "ranks")),
+              RANK_TIMEOUT_S)
+    ranks = [json.loads((work / "ranks" / f"rank{r}.json").read_text())
+             for r in range(2)]
+    for r, result in enumerate(ranks):
+        launches[f"dp step, 2 ranks ({result['backend']}), rank {r}"] = \
+            result["batchnorm=True"]["launches"]
+    if any(ranks[0][k]["loss"] != ranks[1][k]["loss"]
+           for k in ("batchnorm=False", "batchnorm=True")):
+        raise AssertionError(f"the ranks' losses differ: {ranks}")
+    print(f"scale 2 ranks over {ranks[0]['backend']} on "
+          f"{torch.cuda.device_count()} card(s): both ranks held the "
+          f"data-parallel step to the single-device step, with and without "
+          f"BatchNorm, in {time.perf_counter() - t0:.4f} s", flush=True)
+    # train.main starts its two ranks itself, the cache on
+    config = run_config("two_ranks", device_case_cache="on", num_devices=2)
+    t0 = time.perf_counter()
+    train.main(config, str(work / "cases"), seed=0, device="cuda",
+               share_devices=True, rank_timeout_s=RANK_TIMEOUT_S)
+    rows = log_rows(config.training_log)
+    print(f"scale train.main on 2 ranks, the cache on every rank: "
+          + "; ".join(f"epoch {e} loss {float(r['loss']):.6g} val_loss "
+                      f"{float(r['val_loss']):.6g} "
+                      f"{float(r['patches_per_sec']):.6g} patches/s"
+                      for e, r in sorted(rows.items()))
+          + f"; {time.perf_counter() - t0:.4f} s in all", flush=True)
+    if sorted(rows) != ["0", "1"] or not all(
+            np.isfinite(float(r[k])) for r in rows.values()
+            for k in keys) or CheckpointIO(
+                config.model_file).peek_epoch() not in (1, 2):
+        raise AssertionError(f"two-rank training log {rows}")
+    return launches
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -1748,14 +2326,16 @@ def main() -> None:
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
                         ("serve", serve_phase), ("isensee", isensee_phase),
-                        ("experiment", experiment_phase)):
+                        ("experiment", experiment_phase),
+                        ("scale", lambda t, w: scale_phase(
+                            t, w, smi.splitlines()[0]))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as work:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
-    (launches, train_launches, serve_launches, isensee,
-     experiment) = results.values()
+    (launches, train_launches, serve_launches, isensee, experiment,
+     scale) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -1771,6 +2351,8 @@ def main() -> None:
                 "isensee_forward": isensee["kernels"].get(name),
                 "experiment_launches": {path: counts[name] for path, counts
                                         in experiment.items()},
+                "scale_launches": {path: counts[name] for path, counts
+                                   in scale.items()},
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))

@@ -226,17 +226,14 @@ def check_supported(config) -> None:
     ``fold_level0`` "auto", None and "off" all mean no fold: the JAX
     package folds only on a TPU (``models/layers.py::resolve_fold``), and
     the fold is a layout lever for the TPU's conv emitter with the same
-    math as the plain path. An explicit fold tuple raises. More than one
-    device raises (the port runs on one)."""
-    if config.num_devices is not None and config.num_devices > 1:
-        raise NotImplementedError(
-            f"num_devices={config.num_devices}: the data-parallel mesh is "
-            "not ported yet (ROADMAP.md queue 1, DDP)")
+    math as the plain path. An explicit fold tuple raises. ``num_devices``
+    above 1 is data-parallel training (``parallel/data_parallel.py``) and
+    passes; a spatial mesh raises."""
     if config.spatial_devices > 1:
         raise NotImplementedError(
             f"spatial_devices={config.spatial_devices}: depth-axis spatial "
-            "sharding is not ported yet (ROADMAP.md queue 1, spatial "
-            "sharding over more than one device)")
+            "sharding is not ported yet (ROADMAP.md queue 1, multi-device "
+            "inference and spatial sharding)")
     if config.fold_level0 not in (None, "auto", "off"):
         raise ValueError(
             f"fold_level0={config.fold_level0!r}: space-to-depth folding is "

@@ -418,12 +418,13 @@ def _single_device_only(mesh, spatial_mesh) -> None:
     if mesh is not None and int(mesh) > 1:
         raise NotImplementedError(
             f"mesh={mesh}: the patch grid sharded over devices is not "
-            "ported yet (ROADMAP.md queue 1, DDP)")
+            "ported yet (ROADMAP.md queue 1, multi-device inference and "
+            "spatial sharding)")
     if spatial_mesh is not None and int(spatial_mesh) > 1:
         raise NotImplementedError(
             f"spatial_mesh={spatial_mesh}: depth-axis sharding is not "
-            "ported yet (ROADMAP.md queue 1, spatial sharding over more "
-            "than one device)")
+            "ported yet (ROADMAP.md queue 1, multi-device inference and "
+            "spatial sharding)")
 
 
 def run_validation_cases(validation_keys_file: str, model, data_file, config,

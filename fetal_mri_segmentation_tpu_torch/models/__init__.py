@@ -14,7 +14,7 @@ __all__ = ["Isensee2017", "UNet3D", "build_model"]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_model(config, device="cuda"):
+def build_model(config, device="cuda", bn_group=None):
     """The configured model (``UNet3D`` or ``Isensee2017``, by
     ``config.model_name``) on ``device``, in eval mode.
 
@@ -23,7 +23,10 @@ def build_model(config, device="cuda"):
     CPU. The Hopper kernels take bf16 only: on a CUDA device a float32
     config with ``use_pallas_conv`` or ``use_pallas_dec0`` on raises. As in
     the JAX package, Isensee2017's blocks always carry InstanceNorm, and the
-    config's norm and deconvolution keys shape the U-Net only."""
+    config's norm and deconvolution keys shape the U-Net only.
+
+    ``bn_group``: the process group of the data mesh, for sync BatchNorm
+    under data parallelism (the JAX ``build_model``'s ``bn_axis_name``)."""
     check_supported(config)
     dtype = _DTYPES[config.compute_dtype]
     if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
@@ -37,7 +40,7 @@ def build_model(config, device="cuda"):
                   activation_name=config.activation_name, dtype=dtype,
                   use_kernel_conv=config.use_pallas_conv,
                   use_kernel_dec0=config.use_pallas_dec0,
-                  device=resolve_device(device))
+                  device=resolve_device(device), bn_group=bn_group)
     if config.model_name == "isensee":
         model = Isensee2017(
             dropout_rate=config.dropout_rate,

@@ -47,7 +47,9 @@ class Isensee2017(nn.Module):
                  activation_name: str = "sigmoid",
                  dtype: torch.dtype = torch.bfloat16,
                  use_kernel_conv: bool = False,
-                 use_kernel_dec0: bool = False, device=None):
+                 use_kernel_dec0: bool = False, device=None, bn_group=None):
+        # bn_group: accepted as the U-Net's is; every block here carries
+        # InstanceNorm, whose statistics are per sample and need no group
         super().__init__()
         if n_segmentation_levels > depth - 1:
             raise ValueError(

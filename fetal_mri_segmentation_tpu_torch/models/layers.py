@@ -28,6 +28,8 @@ from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import (
 from fetal_mri_segmentation_tpu_torch.ops.cuda_lib import cached
 from fetal_mri_segmentation_tpu_torch.ops.dec0 import (
     dec0_available, up_concat_conv3x3, up_concat_conv3x3_kernel)
+from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
+    all_reduce_sum_grad)
 
 
 class InstanceNorm(nn.Module):
@@ -61,14 +63,24 @@ class BatchNorm(nn.Module):
     variance (flax's E[x^2] - E[x]^2, clipped at 0) normalize, and the
     running buffers move as ``r <- momentum * r + (1 - momentum) * stat``.
     ``nn.BatchNorm3d`` is not this: it keeps the unbiased variance and takes
-    momentum as 1 - 0.99. In eval the buffers normalize."""
+    momentum as 1 - 0.99. In eval the buffers normalize.
+
+    ``group`` (a ``torch.distributed`` process group; the counterpart of
+    flax's ``axis_name``, the JAX blocks' ``bn_axis_name``) makes it sync
+    BatchNorm under data parallelism: in training the per-channel sums of x
+    and x^2 and the count are summed over the ranks with a differentiable
+    all-reduce, so the moments are the GLOBAL batch's, equal to the
+    single-device step's on the same global batch, and the running buffers
+    agree on every rank with no second reduction. ``nn.SyncBatchNorm`` is
+    not this either (unbiased running variance, another momentum)."""
 
     momentum, epsilon = 0.99, 1e-3
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, group=None):
         super().__init__()
         self.dtype = dtype
+        self.group = group
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
@@ -78,8 +90,17 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+            if self.group is None:
+                mean = xf.mean(dim=dims)
+                mean_sq = (xf * xf).mean(dim=dims)
+            else:
+                count = torch.full_like(self.mean[:1],
+                                        xf.numel() // xf.shape[-1])
+                sums = all_reduce_sum_grad(torch.cat(
+                    [xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]),
+                    self.group)
+                mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
+            var = (mean_sq - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 for buf, stat in ((self.mean, mean), (self.var, var)):
                     buf.mul_(self.momentum).add_(stat * (1 - self.momentum))
@@ -131,7 +152,7 @@ class ConvBlock(nn.Module):
                  activation: str = "relu", negative_slope: float = 0.3,
                  dtype: torch.dtype = torch.bfloat16,
                  use_kernel_conv: bool = False,
-                 use_kernel_dec0: bool = False, device=None):
+                 use_kernel_dec0: bool = False, device=None, bn_group=None):
         super().__init__()
         self.features = features
         self.kernel_size = kernel_size
@@ -149,7 +170,7 @@ class ConvBlock(nn.Module):
         if batch_normalization:
             self.norm_key = "bn"
             self.add_module("bn", BatchNorm(features, dtype=dtype,
-                                            device=device))
+                                            device=device, group=bn_group))
         elif instance_normalization:
             self.norm_key = "in"
             self.add_module("in", InstanceNorm(features, dtype=dtype,

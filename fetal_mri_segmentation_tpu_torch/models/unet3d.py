@@ -27,7 +27,8 @@ from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import conv3d_ndhwc
 class UNet3D(nn.Module):
     """x (B, D, H, W, C) -> (B, D, H, W, n_labels) fp32, NDHWC. BatchNorm
     uses the batch's statistics in training (``self.training``) and the
-    running ones in eval."""
+    running ones in eval; ``bn_group`` (a process group) makes them the
+    global batch's under data parallelism (``layers.py::BatchNorm``)."""
 
     def __init__(self, in_channels: int = 1, n_labels: int = 1,
                  depth: int = 4, n_base_filters: int = 32,
@@ -39,7 +40,7 @@ class UNet3D(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  use_kernel_conv: bool = False,
                  use_kernel_dec0: bool = False,
-                 fuse_decoder: bool = True, device=None):
+                 fuse_decoder: bool = True, device=None, bn_group=None):
         super().__init__()
         self.depth = depth
         self.pool_size = tuple(pool_size)
@@ -53,7 +54,8 @@ class UNet3D(nn.Module):
                 cin, cout, batch_normalization=batch_normalization,
                 instance_normalization=instance_normalization, dtype=dtype,
                 use_kernel_conv=use_kernel_conv,
-                use_kernel_dec0=use_kernel_dec0, device=device))
+                use_kernel_dec0=use_kernel_dec0, device=device,
+                bn_group=bn_group))
 
         cin = in_channels
         for level in range(depth):

@@ -8,9 +8,15 @@
   over channels (and over the real samples, with ``sample_mask``).
 
 Reductions run in float32 whatever the compute dtype. Layout is
-channels-first ``(B, C, D, H, W)``. The collective form
-(``axis_name``, the data-parallel dice) waits for DDP (ROADMAP.md queue 1,
-"DDP"): a name other than None raises.
+channels-first ``(B, C, D, H, W)``.
+
+``axis_name`` is the data-parallel form. The JAX package names a mesh axis
+there; the port passes the ``torch.distributed`` process group of its data
+mesh (``parallel/data_parallel.py::DataMesh.group``). The partial sums are
+then summed over the ranks, so every rank holds the dice of the GLOBAL
+batch, and each rank's gradient is that global dice's gradient restricted
+to its own samples: the ranks' gradients add up to the single-device
+gradient (``parallel/collectives.py::sum_gradients``).
 """
 
 from __future__ import annotations
@@ -20,22 +26,46 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
+    all_reduce_sum)
 
-def _collective_ratio(locals_: dict, f, axis_name: Optional[str]
-                      ) -> torch.Tensor:
-    """``f(partial sums)`` on one device; the cross-device form waits for
-    DDP."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: the collective dice needs DDP, not "
-            "ported yet (ROADMAP.md queue 1, DDP)")
-    return f(locals_)
+
+def _collective_ratio(locals_: dict, f, axis_name=None) -> torch.Tensor:
+    """``f(global partial sums)`` under an optional process group, with a
+    gradient that is this rank's exact share of the global value's.
+
+    The globals are all-reduced outside autograd (one all-reduce of the
+    stacked sums). The gradient path is the first-order surrogate
+    ``sum_k (df/dg_k) * local_k`` with ``df/dg_k`` held constant, whose
+    value cancels: each rank's gradient is d(global f)/d(theta) through its
+    own samples only, and the sum over ranks is the global gradient."""
+    if axis_name is None:
+        return f(locals_)
+    keys = list(locals_)
+    summed = all_reduce_sum(
+        torch.stack([locals_[k].float() for k in keys]), axis_name)
+    glob = dict(zip(keys, summed.unbind(0)))
+    if not (torch.is_grad_enabled()
+            and any(v.requires_grad for v in locals_.values())):
+        return f(glob)
+    with torch.enable_grad():
+        leaves = {k: v.clone().requires_grad_() for k, v in glob.items()}
+        value = f(leaves)
+        dfdg = torch.autograd.grad(value, [leaves[k] for k in keys],
+                                   allow_unused=True)
+    surrogate = sum(d * locals_[k] for k, d in zip(keys, dfdg)
+                    if d is not None)
+    # (surrogate - surrogate) first: exactly zero, so the value is the same
+    # bits on every rank, and the ranks' epoch-level decisions agree
+    return value.detach() + (surrogate - surrogate.detach())
 
 
 def dice_coefficient(y_true: torch.Tensor, y_pred: torch.Tensor,
                      smooth: float = 1.0,
-                     axis_name: Optional[str] = None) -> torch.Tensor:
-    """Global soft Dice over the flattened tensors."""
+                     axis_name=None) -> torch.Tensor:
+    """Global soft Dice over the flattened tensors (over every rank's
+    tensors with ``axis_name``: the dice is not linear in the batch, so a
+    mean of per-rank dices would be another objective)."""
     t = y_true.reshape(-1).float()
     p = y_pred.reshape(-1).float()
     locals_ = {"intersection": torch.sum(t * p),
@@ -49,7 +79,7 @@ def dice_coefficient(y_true: torch.Tensor, y_pred: torch.Tensor,
 
 def dice_coefficient_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
                           smooth: float = 1.0,
-                          axis_name: Optional[str] = None) -> torch.Tensor:
+                          axis_name=None) -> torch.Tensor:
     """Negative dice (not 1 - dice)."""
     return -dice_coefficient(y_true, y_pred, smooth=smooth,
                              axis_name=axis_name)
@@ -57,13 +87,15 @@ def dice_coefficient_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
 
 def weighted_dice_coefficient(y_true: torch.Tensor, y_pred: torch.Tensor,
                               axis=(-3, -2, -1), smooth: float = 1e-5,
-                              axis_name: Optional[str] = None,
+                              axis_name=None,
                               sample_mask: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """Per-channel dice over the spatial axes, mean over channels.
 
     ``sample_mask`` (B,): 1 for real samples, 0 for padding; masked
-    samples are left out of the mean."""
+    samples are left out of the mean. With ``axis_name`` the masked total
+    and count are summed over the ranks: the mean over the global ragged
+    batch."""
     y_true = y_true.float()
     y_pred = y_pred.float()
     num = 2.0 * (torch.sum(y_true * y_pred, dim=axis) + smooth / 2.0)
@@ -87,7 +119,7 @@ def weighted_dice_coefficient(y_true: torch.Tensor, y_pred: torch.Tensor,
 
 def weighted_dice_coefficient_loss(y_true: torch.Tensor,
                                    y_pred: torch.Tensor,
-                                   axis_name: Optional[str] = None,
+                                   axis_name=None,
                                    sample_mask: Optional[torch.Tensor] = None
                                    ) -> torch.Tensor:
     """Negative weighted dice."""

@@ -10,8 +10,8 @@ shape; "permute": the 48 cube symmetries, cubic volumes only), with the
 members batched ``tta_chunk`` at a time into one forward each.
 
 Depth-axis sharding over several devices and the GSPMD train and eval
-steps wait for multi-GPU work (ROADMAP.md queue 1, "DDP" and "spatial
-sharding over more than one device"); the entry points refuse ``--spatial-devices`` above 1.
+steps are not ported yet (ROADMAP.md queue 1, multi-device inference and
+spatial sharding); the entry points refuse ``--spatial-devices`` above 1.
 """
 
 from __future__ import annotations

@@ -33,8 +33,8 @@ over the 8 axis flips (``--tta-mode`` implies ``--tta``);
 ``--prob-dtype`` (uint8 / uint16 stay integer on disk via NIfTI
 ``scl_slope``). Not ported yet, each refused by name: ``--export``
 (``torch.export``), ``--from-keras`` (Keras interop), ``--num-devices``
-(DDP) and ``--spatial-devices`` (spatial sharding over more than one
-device), all under ROADMAP.md queue 1.
+and ``--spatial-devices`` (multi-device inference and spatial sharding),
+all under ROADMAP.md queue 1.
 """
 
 from __future__ import annotations
@@ -101,8 +101,8 @@ def check_flags(inputs, *, device_preprocess=False, prob_map=False,
     if multi:
         raise NotImplementedError(
             "--num-devices/--spatial-devices: multi-GPU prediction is not "
-            "ported yet (ROADMAP.md queue 1, DDP and spatial sharding over "
-            "more than one device)")
+            "ported yet (ROADMAP.md queue 1, multi-device inference and "
+            "spatial sharding)")
 
 
 def main(config: Config, params: Optional[str] = None,

@@ -3,6 +3,8 @@
     python -m fetal_mri_segmentation_tpu_torch.train --config CFG \\
         [--data-dir DIR] [--model {unet,isensee}] [--overwrite] [--seed N]
         [--init-params FILE.npz] [--profile LOGDIR] [--device cuda]
+        [--share-devices]
+    torchrun --nproc-per-node N -m fetal_mri_segmentation_tpu_torch.train ...
     python -m fetal_mri_segmentation_tpu_torch.train --smoke [--device cpu]
 
 Port of the root ``train.py``, step for step: build the dataset from
@@ -14,13 +16,29 @@ checkpoint's epoch, create the generators (the split is pickled to
 the port's directory layout (``data/build.py``); an HDF5 file of the JAX
 package at ``config.data_file`` is read where h5py is installed.
 
+The device-resident case cache (``pipeline/device_cache.py``) is on by
+default (``device_case_cache="auto"``): when the padded cases fit the
+device's free memory they are uploaded once and every step feeds indices;
+when only some fit, those stay resident and the rest host-stage; "on"
+raises where "auto" would fall back to host staging, "off" keeps the host
+pipeline. The run says which it chose.
+
+More than one device trains data-parallel
+(``parallel/data_parallel.py``), one process per device. Under a launcher
+(``torchrun``: ``WORLD_SIZE`` is set) this process is one rank. Started
+alone with ``num_devices`` N > 1 (None: every visible card) it builds the
+dataset and the kernels once and starts N ranks itself
+(``torch.multiprocessing.spawn``). Rank 0 writes the checkpoint and the
+log. ``--share-devices`` lets the ranks share cards where there are fewer
+cards than ranks (over gloo: a check of the multi-rank path, no speed-up).
+
 ``--init-params FILE.npz`` starts from the variables, and the Adam moments
 when the file holds them, that ``tools/export_params_npz.py`` wrote from a
 checkpoint of the JAX package. ``--profile LOGDIR`` writes a
 ``torch.profiler`` trace of the run. ``--smoke`` trains a tiny model for
 two epochs on synthetic cases it writes itself. Not ported, each refused by
-name: ``--from-keras`` (Keras interop), more than one device (DDP, spatial
-sharding) and the device-resident case cache.
+name: ``--from-keras`` (Keras interop) and ``spatial_devices`` above 1
+(spatial sharding).
 """
 
 from __future__ import annotations
@@ -34,17 +52,26 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from fetal_mri_segmentation_tpu_torch.config import Config, check_supported
 from fetal_mri_segmentation_tpu_torch.data.build import (
     dataset_bytes, open_data_file, write_data_to_file)
 from fetal_mri_segmentation_tpu_torch.models import build_model
+from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
+from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import make_mesh
+from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+    free_port, initialize_distributed, rank_environment, run_ranks,
+    shutdown_distributed)
+from fetal_mri_segmentation_tpu_torch.pipeline.device_cache import (
+    maybe_build_device_cache)
 from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
     get_training_and_validation_generators)
 from fetal_mri_segmentation_tpu_torch.training.checkpoint import CheckpointIO
 from fetal_mri_segmentation_tpu_torch.training.loop import train_model
 from fetal_mri_segmentation_tpu_torch.training.state import (
     create_train_state)
+from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 from fetal_mri_segmentation_tpu_torch.utils.params import (
     from_flax, init_flax_like, load_npz_train_state)
 from fetal_mri_segmentation_tpu_torch.utils.profiling import trace
@@ -82,52 +109,55 @@ def check_flags(config, *, from_keras=None) -> None:
         raise NotImplementedError(
             "--from-keras: Keras interop is not ported yet (ROADMAP.md "
             "queue 1, interop)")
-    check_supported(config)  # more than one device, a fold tuple
-    if config.device_case_cache == "on":
-        raise NotImplementedError(
-            "device_case_cache='on': the device-resident case cache is not "
-            "ported yet (ROADMAP.md queue 1, the device case cache); the "
-            "default 'auto' trains from the host pipeline")
+    check_supported(config)  # a spatial mesh, a fold tuple
 
 
-def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
-         profile_dir: Optional[str] = None, seed: int = 0,
-         from_keras: Optional[str] = None, *,
-         init_params: Optional[str] = None, device: str = "cuda"):
-    """Build the dataset if needed, then train ``config``'s model on
-    ``device``; returns the final ``TrainState``."""
-    check_flags(config, from_keras=from_keras)
-    # one overwrite for both surfaces (the CLI argument and the config key):
-    # train_model gates its restore on config.overwrite
-    overwrite = bool(overwrite or config.overwrite)
-    config.overwrite = overwrite
+def _build_dataset(config, data_dir: str, overwrite: bool,
+                   verbose: bool) -> None:
+    """Build ``config.data_file`` from the cases unless it exists (cached
+    unless overwrite)."""
+    if not (overwrite or not os.path.exists(config.data_file)):
+        return
+    files, subject_ids = fetch_training_data_files(
+        data_dir, config.training_modalities)
+    if not files:
+        mods = ", ".join(f"{m}.nii[.gz]"
+                         for m in (config.training_modalities
+                                   or config.all_modalities))
+        sys.exit(
+            f"no cases found under {data_dir} — each case needs its own "
+            f"directory containing {mods} AND truth.nii[.gz] "
+            "(incomplete case dirs are skipped)")
+    print(f"building {config.data_file} from {len(files)} cases...")
+    t0 = time.perf_counter()
+    write_data_to_file(files, config.data_file,
+                       image_shape=config.image_shape,
+                       subject_ids=subject_ids,
+                       normalize=config.normalization)
+    if verbose:
+        print(f"built {config.data_file}: {len(files)} cases, "
+              f"{dataset_bytes(config.data_file)} bytes in "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
 
-    # 1. dataset build (cached unless overwrite)
-    if overwrite or not os.path.exists(config.data_file):
-        files, subject_ids = fetch_training_data_files(
-            data_dir, config.training_modalities)
-        if not files:
-            mods = ", ".join(f"{m}.nii[.gz]"
-                             for m in (config.training_modalities
-                                       or config.all_modalities))
-            sys.exit(
-                f"no cases found under {data_dir} — each case needs its own "
-                f"directory containing {mods} AND truth.nii[.gz] "
-                "(incomplete case dirs are skipped)")
-        print(f"building {config.data_file} from {len(files)} cases...")
-        t0 = time.perf_counter()
-        write_data_to_file(files, config.data_file,
-                           image_shape=config.image_shape,
-                           subject_ids=subject_ids,
-                           normalize=config.normalization)
-        if verbose:
-            print(f"built {config.data_file}: {len(files)} cases, "
-                  f"{dataset_bytes(config.data_file)} bytes in "
-                  f"{time.perf_counter() - t0:.4f} s", flush=True)
+
+def _build_kernels(config, device) -> None:
+    """Compile the kernel library before any rank starts, so that two ranks
+    never race on ``nvcc``: each then finds it built."""
+    if resolve_device(device).type == "cuda" and (
+            config.use_pallas_conv or config.use_pallas_dec0):
+        cuda_lib.build()
+
+
+def _train(config, *, mesh, init_params, device, seed, verbose,
+           profile_dir):
+    """Model, state, generators, cache and the loop, on one device or as
+    one rank of ``mesh``; the dataset exists."""
+    overwrite = config.overwrite
+    is_main = mesh is None or mesh.rank == 0
+    verbose = verbose and is_main
     data_file = open_data_file(config.data_file)
-
     try:
-        # 2. model and state (train_model restores the checkpoint)
+        # model and state (train_model restores the checkpoint)
         ckpt_io = CheckpointIO(config.model_file)
         resuming = ckpt_io.exists() and not overwrite
         if init_params and resuming:
@@ -150,29 +180,122 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
         # start_epoch * steps batches the interrupted run consumed
         start_epoch = (ckpt_io.peek_epoch() or 0) if resuming else 0
 
-        # 3. generators
+        # generators; on a mesh rank 0 writes the split and the others
+        # read it
+        if not is_main:
+            dist.barrier(group=mesh.group)
         tg, n_train, vg, n_val = get_training_and_validation_generators(
             data_file, batch_size=config.batch_size, n_labels=config.n_labels,
             training_keys_file=config.training_file,
             validation_keys_file=config.validation_file,
-            data_split=config.validation_split, overwrite=overwrite,
+            data_split=config.validation_split,
+            overwrite=overwrite and is_main,
             labels=config.labels, patch_shape=config.patch_shape,
             validation_batch_size=config.validation_batch_size,
             validation_patch_overlap=config.validation_patch_overlap,
             training_patch_start_offset=config.training_patch_start_offset,
             skip_blank=config.skip_blank, seed=seed,
             start_epoch=start_epoch)
+        if is_main and mesh is not None:
+            dist.barrier(group=mesh.group)
         if verbose:
-            print(f"training on {next(model.parameters()).device}; "
+            where = (f"{mesh.size} ranks, {mesh.axis_names}" if mesh
+                     is not None else str(next(model.parameters()).device))
+            print(f"training on {where}; "
                   f"{n_train} steps/epoch, {n_val} val steps")
 
-        # 4. train
-        with (trace(profile_dir) if profile_dir
+        # the device-resident case cache (a single device or a data mesh):
+        # a resumed run pins the interrupted run's data-order mode, since
+        # the decision otherwise reads the live free memory
+        resume_order = None
+        if resuming and start_epoch > 0:
+            resume_order = (ckpt_io.peek_data_order()
+                            or {"mode": "lockstep"})
+        device_cache = None
+        dc = maybe_build_device_cache(
+            data_file, config, mesh=mesh, seed=seed,
+            train_skip_batches=start_epoch * n_train,
+            val_skip_batches=start_epoch * n_val,
+            resume_data_order=resume_order, verbose=verbose,
+            device=next(model.parameters()).device)
+        if dc is not None:
+            device_cache, tg, vg = dc
+
+        with (trace(profile_dir) if profile_dir and is_main
               else contextlib.nullcontext()):
             return train_model(model, state, config, tg, vg, n_train, n_val,
-                               seed=seed, verbose=verbose)
+                               mesh=mesh, seed=seed, verbose=verbose,
+                               device_cache=device_cache)
     finally:
         data_file.close()
+
+
+def _rank_main(local_rank: int, world: int, port: int, config_dict: dict,
+               kwargs: dict) -> None:
+    """One spawned rank: say where it stands, join the group, train."""
+    os.environ.update(rank_environment(local_rank, world, port))
+    _train_as_rank(Config.from_dict(config_dict), **kwargs)
+
+
+def _train_as_rank(config, *, device, share_devices, **kwargs):
+    initialize_distributed(device=device, share_devices=share_devices)
+    try:
+        mesh = make_mesh(device=device, share_devices=share_devices)
+        return _train(config, mesh=mesh if mesh.size > 1 else None,
+                      device=mesh.device, **kwargs)
+    finally:
+        shutdown_distributed()
+
+
+def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
+         profile_dir: Optional[str] = None, seed: int = 0,
+         from_keras: Optional[str] = None, *,
+         init_params: Optional[str] = None, device: str = "cuda",
+         share_devices: bool = False,
+         rank_timeout_s: Optional[float] = None):
+    """Build the dataset if needed, then train ``config``'s model on
+    ``device``; returns the final ``TrainState`` (None where this process
+    only started the ranks). ``share_devices``: see the module docstring.
+    ``rank_timeout_s``: the ranks this process starts are killed, and the
+    call raises, when they run longer."""
+    check_flags(config, from_keras=from_keras)
+    # one overwrite for both surfaces (the CLI argument and the config key):
+    # train_model gates its restore on config.overwrite
+    overwrite = bool(overwrite or config.overwrite)
+    config.overwrite = overwrite
+    kwargs = dict(init_params=init_params, seed=seed, verbose=verbose,
+                  profile_dir=profile_dir)
+
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        # one rank under a launcher: rank 0 builds what every rank reads
+        world = int(os.environ["WORLD_SIZE"])
+        if config.num_devices not in (None, world):
+            raise ValueError(f"num_devices={config.num_devices} but the "
+                             f"launcher started {world} processes")
+        initialize_distributed(device=device, share_devices=share_devices)
+        if dist.get_rank() == 0:
+            _build_dataset(config, data_dir, overwrite, verbose)
+            _build_kernels(config, device)
+        dist.barrier()
+        return _train_as_rank(config, device=device,
+                              share_devices=share_devices, **kwargs)
+
+    dev = resolve_device(device)
+    cards = (torch.cuda.device_count()
+             if dev.type == "cuda" and dev.index is None else 1)
+    n_dev = config.num_devices or cards
+    _build_dataset(config, data_dir, overwrite, verbose)
+    if n_dev <= 1:
+        return _train(config, mesh=None, device=device, **kwargs)
+    if dev.type == "cuda" and n_dev > cards and not share_devices:
+        # running on fewer devices than asked for must not pass silently
+        raise ValueError(f"requested {n_dev} devices, have {cards}")
+    _build_kernels(config, device)
+    run_ranks(_rank_main, n_dev,
+              (n_dev, free_port(), config.to_dict(),
+               dict(device=device, share_devices=share_devices, **kwargs)),
+              rank_timeout_s)
+    return None
 
 
 def run_smoke(tmpdir: Optional[str] = None, device: str = "cuda"):
@@ -223,6 +346,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--from-keras", metavar="MODEL_H5", default=None,
                     help="not ported yet")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--share-devices", action="store_true",
+                    help="let ranks share a card where num_devices exceeds "
+                         "the cards (gloo; a check, not a speed-up)")
     return ap
 
 
@@ -239,4 +365,4 @@ if __name__ == "__main__":
     main(cfg, args.data_dir or cfg.data_dir or "data",
          overwrite=cfg.overwrite, profile_dir=args.profile, seed=args.seed,
          from_keras=args.from_keras, init_params=args.init_params,
-         device=args.device)
+         device=args.device, share_devices=args.share_devices)

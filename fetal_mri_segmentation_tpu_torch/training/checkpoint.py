@@ -6,10 +6,12 @@
 optimizer's (Adam moments, step counts, learning rate),
 the step, the resume epoch, the best value and the epoch schedulers'
 state, so a resumed run continues exactly. Beside it, ``<model_file>
-.meta.json`` records the epoch (and the data order, always the host
-pipeline's "lockstep" here, as the JAX package writes it), so the
-generators can be fast-forwarded (:meth:`CheckpointIO.peek_epoch`) before
-the state is restored. Both are written to a temporary name and renamed.
+.meta.json`` records the epoch and the run's data order ("lockstep": the
+host pipeline's batch boundaries, which a full device cache shares; or
+"partial" with the resident cases of a partial device cache), so the
+generators can be fast-forwarded (:meth:`CheckpointIO.peek_epoch`) and the
+cache's mode pinned (:meth:`CheckpointIO.peek_data_order`) before the state
+is restored. Both are written to a temporary name and renamed.
 The JAX package's orbax checkpoints are not read (orbax is absent where
 the port runs): ``tools/export_params_npz.py`` writes their params,
 ``batch_stats`` and Adam moments as an ``.npz`` that ``train
@@ -54,8 +56,26 @@ class CheckpointIO:
         # a negative epoch must not reach the generators' skip_batches
         return epoch if epoch >= 0 else None
 
+    def peek_data_order(self) -> Optional[dict]:
+        """The sidecar's recorded data-order mode, without loading the
+        state: ``{"mode": "lockstep"}`` or ``{"mode": "partial",
+        "resident": [case ids]}``. A resumed run's ``skip_batches``
+        fast-forward lands on the interrupted run's batch sequence only if
+        the cache mode is reproduced, so ``maybe_build_device_cache`` pins
+        its decision to this record instead of reading the live free
+        memory again. None without a readable record."""
+        if not self.exists():
+            return None
+        try:
+            with open(self.path + ".meta.json") as f:
+                order = json.load(f).get("data_order")
+        except (OSError, ValueError, AttributeError):
+            return None
+        return order if isinstance(order, dict) and "mode" in order else None
+
     def save(self, state: TrainState, *, epoch: int, best_val: float,
-             sched: Optional[dict] = None) -> None:
+             sched: Optional[dict] = None,
+             data_order: Optional[dict] = None) -> None:
         # without sched, seed the schedulers' bests with best_val and their
         # waits with 0 (an unbeatable best of 0.0 would drop the LR every
         # `patience` epochs)
@@ -73,7 +93,7 @@ class CheckpointIO:
         torch.save(payload, tmp)
         os.replace(tmp, self.path)
         atomic_json_dump({"epoch": int(epoch), "best_val": float(best_val),
-                          "data_order": {"mode": "lockstep"}},
+                          "data_order": data_order or {"mode": "lockstep"}},
                          self.path + ".meta.json")
 
     def restore(self, state: TrainState

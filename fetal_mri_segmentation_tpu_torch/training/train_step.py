@@ -20,6 +20,15 @@ passed in, so the recompute drops the same channels (an explicit
 generator is not restored by the checkpoint), and a model with BatchNorm
 runs without remat, as in the JAX step, since the recompute would move the
 running statistics twice.
+
+``axis_name`` is the data-parallel form of both steps (the JAX steps'
+``axis_name="data"``): the process group of the data mesh. The batch is
+then this rank's rows of the global batch; the loss and the metrics are the
+GLOBAL batch's (``ops/dice.py::_collective_ratio``), identical on every
+rank; each rank's backward gives its share of the global gradient, and the
+shares are SUMMED over the ranks before the optimizer steps
+(``parallel/collectives.py::sum_gradients``), so the global-norm clip and
+Adam see the single-device gradient on every rank.
 """
 
 from __future__ import annotations
@@ -35,23 +44,27 @@ from fetal_mri_segmentation_tpu_torch.models.layers import BatchNorm
 from fetal_mri_segmentation_tpu_torch.ops.augment import augment_batch
 from fetal_mri_segmentation_tpu_torch.ops.dice import (
     dice_coefficient, dice_coefficient_loss, weighted_dice_coefficient_loss)
+from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
+    sum_gradients)
 
 
 def get_loss_fn(config) -> Callable:
-    """``loss(y, pred, sample_mask)``: the weighted dice for Isensee or
-    ``n_labels > 1``, else the negative dice with padded samples' truth and
-    prediction zeroed (the ragged batch's dice, exactly)."""
+    """``loss(y, pred, sample_mask, axis_name)``: the weighted dice for
+    Isensee or ``n_labels > 1``, else the negative dice with padded
+    samples' truth and prediction zeroed (the ragged batch's dice,
+    exactly). With ``axis_name`` (a process group) the value is the global
+    batch's on every rank."""
     if config.model_name == "isensee" or config.n_labels > 1:
-        def loss(y, pred, sample_mask=None):
-            return weighted_dice_coefficient_loss(y, pred,
-                                                  sample_mask=sample_mask)
+        def loss(y, pred, sample_mask=None, axis_name=None):
+            return weighted_dice_coefficient_loss(
+                y, pred, axis_name=axis_name, sample_mask=sample_mask)
     else:
-        def loss(y, pred, sample_mask=None):
+        def loss(y, pred, sample_mask=None, axis_name=None):
             if sample_mask is not None:
                 m = sample_mask.reshape((-1,) + (1,) * (y.ndim - 1))
                 y = y * m
                 pred = pred * m
-            return dice_coefficient_loss(y, pred)
+            return dice_coefficient_loss(y, pred, axis_name=axis_name)
     return loss
 
 
@@ -72,15 +85,19 @@ def _entry(model, x, y):
 
 
 def make_train_step(model, config, *,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Callable:
+                    generator: Optional[torch.Generator] = None,
+                    axis_name=None,
+                    debug_return_batch: bool = False) -> Callable:
     """``step(state, x, y, n_valid=None) -> metrics``; updates ``state``
     (parameters, optimizer, step count) in place.
 
     ``generator`` draws the augmentation and Isensee2017's dropout masks
     (on the model's device); it is needed only when the config augments or
     drops. ``n_valid`` < batch masks the padded tail of a ragged batch out
-    of the loss and the metrics."""
+    of the loss and the metrics. ``axis_name``: the data mesh's process
+    group (see the module docstring); x, y and ``n_valid`` are then this
+    rank's. ``debug_return_batch``: the step returns ``(metrics, (x, y))``
+    with the batch as it was trained on, after augmentation."""
     check_supported(config)
     loss_fn = get_loss_fn(config)
     do_augment = config.augment and any(
@@ -113,36 +130,44 @@ def make_train_step(model, config, *,
             pred = checkpoint(_forward, model, x, masks, use_reentrant=False)
         else:
             pred = _forward(model, x, masks)
-        loss = loss_fn(y, pred, sample_mask)
+        loss = loss_fn(y, pred, sample_mask, axis_name)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if axis_name is not None:
+            # summed, not averaged: each rank holds its share of the global
+            # loss's gradient (DistributedDataParallel would divide by N)
+            sum_gradients(list(model.parameters()), axis_name)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
             pred = pred.detach()
             metrics = {"loss": loss.detach(),
-                       "dice": _masked_dice(y, pred, sample_mask)}
+                       "dice": _masked_dice(y, pred, sample_mask, axis_name)}
             metrics.update(_label_wise_metrics(config, y, pred,
-                                               sample_mask))
+                                               sample_mask, axis_name))
+        if debug_return_batch:
+            return metrics, (x, y)
         return metrics
 
     return step
 
 
 def make_eval_step(model, config) -> Callable:
-    """``eval_step(state, x, y, n_valid=None) -> metrics``: no augmentation,
-    no gradient."""
+    """``eval_step(state, x, y, n_valid=None, axis_name=None) -> metrics``:
+    no augmentation, no gradient. ``axis_name``: the data mesh's process
+    group; the metrics are then the global batch's."""
     loss_fn = get_loss_fn(config)
 
     @torch.no_grad()
-    def step(state, x, y, n_valid=None):
+    def step(state, x, y, n_valid=None, axis_name=None):
         x, y = _entry(model, x, y)
         model.eval()
         pred = _forward(model, x)
         sample_mask = _sample_mask(x, n_valid)
-        metrics = {"loss": loss_fn(y, pred, sample_mask),
-                   "dice": _masked_dice(y, pred, sample_mask)}
-        metrics.update(_label_wise_metrics(config, y, pred, sample_mask))
+        metrics = {"loss": loss_fn(y, pred, sample_mask, axis_name),
+                   "dice": _masked_dice(y, pred, sample_mask, axis_name)}
+        metrics.update(_label_wise_metrics(config, y, pred, sample_mask,
+                                           axis_name))
         return metrics
 
     return step
@@ -155,7 +180,8 @@ def _sample_mask(x: torch.Tensor, n_valid) -> Optional[torch.Tensor]:
     return (torch.arange(x.shape[0], device=x.device) < n_valid).float()
 
 
-def _label_wise_metrics(config, y, pred, sample_mask) -> dict:
+def _label_wise_metrics(config, y, pred, sample_mask,
+                        axis_name=None) -> dict:
     """``label_{i}_dice_coef`` per label, when the config asks for them and
     there is more than one label."""
     if not getattr(config, "include_label_wise_dice_coefficients", False):
@@ -163,17 +189,17 @@ def _label_wise_metrics(config, y, pred, sample_mask) -> dict:
     if config.n_labels <= 1:
         return {}
     return {f"label_{i}_dice_coef": _masked_dice(
-        y[:, i:i + 1], pred[:, i:i + 1], sample_mask)
+        y[:, i:i + 1], pred[:, i:i + 1], sample_mask, axis_name)
         for i in range(config.n_labels)}
 
 
-def _masked_dice(y, pred, sample_mask) -> torch.Tensor:
+def _masked_dice(y, pred, sample_mask, axis_name=None) -> torch.Tensor:
     """The batch's dice with padded samples left out exactly."""
     if sample_mask is not None:
         m = sample_mask.reshape((-1,) + (1,) * (y.ndim - 1))
         y = y * m
         pred = pred * m
-    return dice_coefficient(y, pred)
+    return dice_coefficient(y, pred, axis_name=axis_name)
 
 
 def pad_batch(x: np.ndarray, y: np.ndarray, batch_size: int):

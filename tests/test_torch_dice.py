@@ -89,10 +89,36 @@ def test_hard_dice_matches_jax(case):
     assert TD.hard_dice(t, p) == JD.hard_dice(t, p)
 
 
-def test_collective_dice_is_not_ported_yet():
+def test_collective_dice_is_not_ported_yet(tmp_path):
+    """It is ported now (the name stays): over a process group of one rank
+    the collective dice and weighted dice equal the plain ones in value
+    and in gradient (``tests/test_torch_parallel.py`` holds two ranks
+    against one)."""
+    import torch.distributed as dist
+
     t, p = map(torch.from_numpy, _pair(6))
-    with pytest.raises(NotImplementedError, match="DDP"):
-        TD.dice_coefficient(t, p, axis_name="data")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        for fn, kw in ((TD.dice_coefficient_loss, {}),
+                       (TD.weighted_dice_coefficient_loss,
+                        {"sample_mask": torch.tensor([1.0, 1.0, 0.0])})):
+            grads = []
+            for axis_name in (None, dist.group.WORLD):
+                q = p.clone().requires_grad_()
+                value = fn(t, q, axis_name=axis_name, **kw)
+                value.backward()
+                grads.append((value.detach(), q.grad))
+            torch.testing.assert_close(grads[1][0], grads[0][0], atol=1e-7,
+                                       rtol=0)
+            torch.testing.assert_close(grads[1][1], grads[0][1], atol=1e-9,
+                                       rtol=1e-6)
+            with torch.no_grad():
+                torch.testing.assert_close(
+                    fn(t, p, axis_name=dist.group.WORLD, **kw), grads[0][0],
+                    atol=1e-7, rtol=0)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("n_labels", [1, 2])

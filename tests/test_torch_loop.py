@@ -2,7 +2,9 @@
 pieces it stands on against their JAX originals: callbacks, patch
 generators, the in-memory file against the HDF5 writer, prefetch and
 checkpoints. Resume, a run without validation and zero training steps as
-in ``tests/test_loop.py``.
+in ``tests/test_loop.py``; the mesh and cache combinations the loop
+refuses (``tests/test_torch_device_cache.py`` and ``test_torch_parallel.py``
+hold the ones it runs).
 
 Tolerance: the generators, callbacks and patch functions are copies and
 must agree exactly; the in-memory file against the HDF5 writer atol 1e-5
@@ -290,9 +292,14 @@ def test_train_model_refuses_zero_steps_and_unported_paths(cases, data_file):
     model, state = _fresh_state(cfg)
     with pytest.raises(ValueError, match="steps_per_epoch=0"):
         train_model(model, state, cfg, tg, vg, 0, n_v, verbose=False)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        train_model(model, state, cfg, tg, vg, 1, n_v, mesh=object(),
-                    verbose=False)
-    with pytest.raises(NotImplementedError, match="device"):
-        train_model(model, state, cfg, tg, vg, 1, n_v, device_cache=object(),
-                    verbose=False)
+    # the cache and the mesh are ported; what stays refused, as in the JAX
+    # loop: the cache on a spatial mesh, a partial cache on any mesh
+    from types import SimpleNamespace as NS
+    with pytest.raises(ValueError, match="spatial/hybrid"):
+        train_model(model, state, cfg, tg, vg, 1, n_v, verbose=False,
+                    mesh=NS(size=4, rank=0, axis_names=("data", "spatial")),
+                    device_cache=NS(partial=False))
+    with pytest.raises(ValueError, match="single-device only"):
+        train_model(model, state, cfg, tg, vg, 1, n_v, verbose=False,
+                    mesh=NS(size=2, rank=0, axis_names=("data",)),
+                    device_cache=NS(partial=True))

@@ -10,6 +10,10 @@ cases by ``train.main --device cpu`` for one epoch with scale and rotation
 augmentation, the validation-set ``predict.main`` from the port's own
 checkpoint, ``evaluate.main``, ``ensemble.main``; an HDF5 file at
 ``config.data_file`` raises and names the converter);
+the device case cache and the data mesh run too (``train.main`` with
+``device_case_cache="on"`` equal to "off", and one rank that joins a gloo
+group through ``initialize_distributed`` and takes a data-parallel cached
+step);
 ``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone."""
 
@@ -213,6 +217,48 @@ for tag in ("a", "b"):
 assert ensemble.main([os.path.join(work, "prob_a"),
                       os.path.join(work, "prob_b")],
                      os.path.join(work, "ens"), labels=[1]) == 2
+# the device case cache ("auto" above trained from it): "on" and "off" train
+# the same model; then one rank joins a gloo group as a launcher would have
+# it and takes a cached data-parallel step
+import dataclasses
+from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import make_mesh
+from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+    free_port, initialize_distributed, rank_environment,
+    shutdown_distributed)
+from fetal_mri_segmentation_tpu_torch.pipeline import device_cache
+
+finals = []
+for knob in ("on", "off"):
+    ccfg = dataclasses.replace(
+        ecfg, device_case_cache=knob, overwrite=True,
+        model_file=os.path.join(work, f"model_{knob}.ckpt"),
+        training_log=os.path.join(work, f"training_{knob}.log"))
+    cstate = train.main(ccfg, os.path.join(work, "cases"), verbose=False,
+                        device="cpu")
+    finals.append(torch.cat([p.detach().reshape(-1)
+                             for p in cstate.model.parameters()]))
+assert torch.equal(finals[0], finals[1])
+launcher = rank_environment(0, 1, free_port())
+os.environ.update(launcher)
+initialize_distributed(device="cpu")
+mesh = make_mesh(1, device="cpu")
+assert mesh.group is not None and (mesh.rank, mesh.size) == (0, 1)
+with open_data_file(ecfg.data_file) as f:
+    cache, tgen, _ = device_cache.maybe_build_device_cache(
+        f, ecfg, mesh=mesh, seed=0)
+    rows, corners, n_valid = next(tgen)
+dmodel = build_model(ecfg, "cpu")
+dstep = device_cache.make_cached_dp_train_step(
+    dmodel, ecfg, mesh, cache.margin_lo,
+    generator=torch.Generator().manual_seed(0))
+metrics = dstep(create_train_state(dmodel, ecfg), cache.data_stack,
+                cache.truth_stack, torch.from_numpy(rows),
+                torch.from_numpy(corners), n_valid)
+assert torch.isfinite(metrics["loss"])
+shutdown_distributed()
+for key in launcher:
+    del os.environ[key]
+
 # an HDF5 file cannot be read here (h5py is refused): the error names the
 # converter
 open(os.path.join(work, "data.h5"), "wb").close()

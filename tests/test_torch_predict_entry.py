@@ -192,7 +192,8 @@ def test_predict_main_uint8_probabilities_match_root(experiment, monkeypatch):
      "--device-preprocess"),
     ({"prob_map": True, "export_path": "x"}, ValueError, "not exportable"),
     ({"num_devices": 2}, ValueError, "single-device"),
-    ({"inputs": None, "num_devices": 2}, NotImplementedError, "DDP"),
+    ({"inputs": None, "num_devices": 2}, NotImplementedError,
+     "multi-device inference"),
     ({"inputs": None, "spatial_devices": 2}, NotImplementedError,
      "spatial sharding"),
     ({"export_path": "x"}, NotImplementedError, "torch.export"),

@@ -4,7 +4,9 @@ the same synthetic cases and tiny config (CPU, fp32): the dataset (equal
 arrays), the split pickles (equal), the log's columns (equal) and the
 checkpoint with its sidecar, as the root entry leaves them; resume; a start
 from the variables and Adam moments that ``tools/export_params_npz.py``
-writes (equal bit for bit after loading); the refusals by name.
+writes (equal bit for bit after loading); the device case cache's knob
+("on", "auto" and "off" train the same model, "auto" says what it chose);
+the refusals by name.
 """
 
 import csv
@@ -236,15 +238,82 @@ def test_init_params_with_adam_moments_from_the_export_tool(runs, cases,
 
 @pytest.mark.parametrize("kw,flags,match", [
     ({}, {"from_keras": "m.h5"}, "Keras interop"),
-    ({"num_devices": 2}, {}, "DDP"),
     ({"spatial_devices": 2}, {}, "spatial sharding"),
-    ({"device_case_cache": "on"}, {}, "device case cache"),
+    ({"spatial_devices": 2, "num_devices": 4}, {},
+     "multi-device inference and spatial sharding"),
+    ({"spatial_devices": 2, "device_case_cache": "on"}, {},
+     "spatial sharding"),
 ])
 def test_refusals_by_name(cases, tmp_path, kw, flags, match):
     cfg = make_cfg(Config, tmp_path, "data", **kw)
     with pytest.raises(NotImplementedError, match=match):
         entry.main(cfg, str(cases / "cases"), device="cpu", **flags)
     assert not os.path.exists(cfg.data_file)  # refused before any work
+
+
+@pytest.fixture(scope="module")
+def cache_runs(cases):
+    """One epoch of the same config and seed under each value of
+    ``device_case_cache``, and under "auto" with no room for the cache."""
+    from fetal_mri_segmentation_tpu_torch.pipeline import device_cache
+
+    out = {}
+    for knob in ("off", "on", "auto", "auto-no-room"):
+        d = cases / f"cache_{knob}"
+        d.mkdir()
+        cfg = make_cfg(Config, d, "data", n_epochs=1,
+                       device_case_cache=knob.split("-")[0])
+        budget = device_cache.AUTO_BUDGET_BYTES
+        if knob == "auto-no-room":
+            device_cache.AUTO_BUDGET_BYTES = 10
+        try:
+            import contextlib
+            import io
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                state = entry.main(cfg, str(cases / "cases"), seed=3,
+                                   device="cpu")
+        finally:
+            device_cache.AUTO_BUDGET_BYTES = budget
+        out[knob] = (cfg, state, said.getvalue())
+    return out
+
+
+@pytest.mark.parametrize("knob,says", [
+    ("on", "4 cases resident on cpu"), ("auto", "4 cases resident on cpu"),
+    ("auto-no-room", "keeping host staging"), ("off", None)])
+def test_device_case_cache_knob(cache_runs, knob, says):
+    """"on" no longer raises; the default "auto" trains from the cache when
+    the dataset fits and says so, falls back to host staging when it does
+    not and says why; every mode trains the same model bit for bit."""
+    cfg, state, said = cache_runs[knob]
+    if says is None:
+        assert "[device-cache]" not in said
+    else:
+        assert says in said
+    _, want, _ = cache_runs["off"]
+    assert state.step == want.step > 0
+    for (n, a), b in zip(state.model.state_dict().items(),
+                         want.model.state_dict().values()):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=n)
+    with open(cfg.training_log) as f, \
+            open(cache_runs["off"][0].training_log) as g:
+        rows, ref = list(csv.DictReader(f)), list(csv.DictReader(g))
+    assert [r["loss"] for r in rows] == [r["loss"] for r in ref]
+    assert CheckpointIO(cfg.model_file).peek_data_order() == {
+        "mode": "lockstep"}
+
+
+def test_device_case_cache_on_raises_where_it_cannot_be_built(cases,
+                                                              tmp_path):
+    """"on" raises where "auto" falls back: whole-volume training has no
+    patch gather to cache for."""
+    cfg = make_cfg(Config, tmp_path, "data", patch_shape=None,
+                   training_patch_start_offset=None, batch_size=1,
+                   device_case_cache="on", n_epochs=1)
+    with pytest.raises(ValueError, match="device_case_cache='on' but "
+                       "patch_shape is None"):
+        entry.main(cfg, str(cases / "cases"), verbose=False, device="cpu")
 
 
 def test_no_cases_found_exits_like_the_root(tmp_path):
@@ -287,6 +356,8 @@ def test_cli_parses():
          "--overwrite", "--seed", "4", "--init-params", "p.npz",
          "--profile", "logs"])
     assert (args.config, args.data_dir, args.model_name, args.overwrite,
-            args.seed, args.init_params, args.profile, args.device) == (
-        "c.json", "d", "isensee", True, 4, "p.npz", "logs", "cuda")
+            args.seed, args.init_params, args.profile, args.device,
+            args.share_devices) == (
+        "c.json", "d", "isensee", True, 4, "p.npz", "logs", "cuda", False)
+    assert entry._parser().parse_args(["--share-devices"]).share_devices
     assert entry._parser().parse_args(["--smoke"]).smoke

@@ -6,7 +6,8 @@ params and Adam moments, also with ``clip_norm`` and with ``remat``; an
 optax Adam state carried over with ``load_optax_adam_state`` continues on
 the same trajectory; ``KerasAdam`` alone matches ``make_optimizer``'s
 update; a tiny model overfits one patch; and ``check_supported`` refuses
-what the port does not train yet.
+what the port does not train yet (a spatial mesh) and passes what it does
+(the resampling augmentations, a data-parallel ``num_devices``).
 
 Tolerance: params atol 1e-5 after 3 steps (the gradients differ between
 the packages by fp32 sums of another order, about 1e-6 relative, and each
@@ -264,13 +265,19 @@ def test_eval_step_masks_the_padded_tail_and_reports_label_dice():
 
 @pytest.mark.parametrize("kw,item", [
     ({"distort": 0.25}, None), ({"rotate": 15.0}, None),
-    ({"num_devices": 4}, "DDP"), ({"spatial_devices": 2}, "spatial")])
+    ({"num_devices": 4}, "data-parallel"),
+    ({"spatial_devices": 2}, "spatial sharding")])
 def test_check_supported_refuses_what_is_not_ported(kw, item):
     """The train step and ``check_supported`` (which ``build_model`` runs)
-    refuse the mesh keys by name; the resampling augmentations are ported,
-    so a step is made for them (and needs a generator)."""
+    refuse a spatial mesh by name; the resampling augmentations are ported,
+    so a step is made for them (and needs a generator), and so is
+    data-parallel training: ``num_devices`` above 1 passes."""
     cfg = Config(**kw)
     model = build_model(Config(depth=2, n_base_filters=8), "cpu")
+    if item == "data-parallel":
+        check_supported(cfg)
+        make_train_step(model, cfg, generator=torch.Generator())
+        return
     if item is None:
         check_supported(cfg)
         make_train_step(model, cfg, generator=torch.Generator())

@@ -93,13 +93,16 @@ def test_max_pool_drops_the_remainder_like_valid_pooling():
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    ({"num_devices": 4}, NotImplementedError, "DDP"),
+    ({"spatial_devices": 4}, NotImplementedError,
+     "multi-device inference and spatial sharding"),
     ({"spatial_devices": 2}, NotImplementedError, "spatial"),
     ({"fold_level0": (1, 1, 2)}, ValueError, "fold_level0"),
 ])
 def test_build_model_refuses_what_is_not_ported(kw, error, match):
     with pytest.raises(error, match=match):
         build_model(Config(**kw), "cpu")
+    # a data-parallel device count is ported and builds
+    build_model(Config(num_devices=4, depth=2, n_base_filters=8), "cpu")
 
 
 @pytest.mark.parametrize("fold", ["auto", "off", None])

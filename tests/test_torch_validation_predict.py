@@ -277,7 +277,8 @@ def test_run_validation_case_and_names_without_subject_ids(experiment,
                         ).get_fdata())
 
 
-@pytest.mark.parametrize("kw,match", [({"mesh": 2}, "DDP"),
+@pytest.mark.parametrize("kw,match", [({"mesh": 2},
+                                       "multi-device inference"),
                                       ({"spatial_mesh": 4}, "spatial")])
 def test_more_than_one_device_raises_by_name(experiment, tmp_path, kw, match):
     _, _, cfg, _, _, model = experiment
