@@ -89,13 +89,34 @@ Phases, one line each (or one line per checked shape):
    change, BatchNorm's buffers), and ``train.main`` with ``num_devices=2``
    and the cache on for two epochs. Launches exactly 6 / 4 / 3 per forward
    of every counted run, the ranks' own included. A rank's non-zero exit
-   or its time limit fails the script.
+   or its time limit fails the script;
+10. spatial: multi-device inference and depth-axis spatial sharding on
+   the same config. One-device references (the direct predictor and the
+   sliding window on three 128^3 cases, the peak memory of a whole-volume
+   forward and of a train step); ``halo_exchange`` and ``all_gather_cat``
+   on CUDA tensors in an NCCL group of one rank; then two ranks (sharing
+   the card over gloo, or on a card each over NCCL): the spatial predictor
+   on a 1 x 2 mesh and the patch-grid sharded predictor on the data mesh
+   against the one-device predictors (``PROB_TOL``, no label flip away
+   from 0.5), the spatial predictor of ``configs/fetal_isensee.json``
+   against its direct predictor (``NORM_PROB_TOL``: InstanceNorm's moments
+   summed over the ranks, the stride-2 halo, 6 / 8 / 0 launches per
+   forward), the 1 x 2 GSPMD train step against the single-device step
+   (as the scale phase's), each rank's peak memory, and as a launcher
+   starts them ``train.main`` with ``spatial_devices=2`` for two epochs
+   and ``predict.main`` with ``spatial_devices=2`` and ``num_devices=2``
+   over the validation split (probabilities against one device's); then
+   four ranks: the 2 x 2 hybrid step. Launches exactly 6 / 4 / 3 per
+   forward on every rank of every counted run.
 
 The kernel phase also checks every kernel layer of the direct 128^3
-forward at batch 1 and at the TTA chunks of 2 and 8, and prints each
-shape's bound (the larger of its operations over
-the bf16 peak and its bytes over the HBM rate) and the time of one cuDNN
-convolution on the same inputs (``library_ms``).
+forward at batch 1 and at the TTA chunks of 2 and 8, and the spatial
+phase's halo'd slabs (a rank's 64 + 2 rows of the 128^3 volume, and of
+the train step's 64^3 patches at batches 6 and 3; Isensee2017's on the
+volume), and prints each shape's
+bound (the larger of its operations over the bf16 peak and its bytes over
+the HBM rate) and the time of one cuDNN convolution on the same inputs
+(``library_ms``).
 
 Then one JSON line describing the kernels, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
@@ -215,6 +236,27 @@ CONV_SHAPES += [(entry, f"{tag} {layer}", b, 2 * d, 2 * h, 2 * w, ci, co)
 DEC_SHAPES += [(f"{tag} {layer}", b, 2 * d, 2 * h, 2 * w, *rest)
                for layer, _, d, h, w, *rest in DEC_SHAPES
                if layer[:3] in SLICE_LAYERS for tag, b in DIRECT_BATCHES]
+# The spatial phase's halo'd slabs (parallel/spatial.py): on a mesh of
+# SPATIAL_RANKS ranks that split the depth, every 3^3 conv of the U-Net runs
+# on its rank's slab plus one row of each neighbour, and the fused decoder
+# on its coarse slab plus one row and its skip plus two rows of each: the
+# whole 128^3 volume at batch 1 (level 0: 64 + 2 rows of 128 x 128) and the
+# train step's 64^3 patches at batch 6 (a 1 x 2 mesh) and 3 (2 x 2). Kept
+# apart from the serving sums; the "halo-direct" shapes are one rank's
+# whole-volume forward and are summed as such.
+SPATIAL_RANKS = 2
+HALO_BATCHES = (("halo-direct", 1, 2), ("halo-train6", 6, 1),
+                ("halo-train3", 3, 1))  # (tag, batch, extent x the patch)
+HALO_CONV_SHAPES = [
+    (entry, f"{tag} {layer}", b, s * d // SPATIAL_RANKS + 2, s * h, s * w,
+     ci, co)
+    for tag, b, s in HALO_BATCHES
+    for entry, layer, _, d, h, w, ci, co in CONV_SHAPES
+    if layer[:3] in SLICE_LAYERS]
+HALO_DEC_SHAPES = [
+    (f"{tag} {layer}", b, s * d // SPATIAL_RANKS + 2, s * h, s * w, *rest)
+    for tag, b, s in HALO_BATCHES
+    for layer, _, d, h, w, *rest in DEC_SHAPES if layer[:3] in SLICE_LAYERS]
 # the slice's blocks use relu; the extra shapes cover the other activations
 ACTIVATION = {"non-cubic": "none", "ragged": "leaky_relu",
               "ragged-K": "leaky_relu", "ragged-N": "none"}
@@ -253,6 +295,13 @@ ISENSEE_SHAPES = [(entry, f"{tag} isensee {layer}", b, s * n, s * n, s * n,
                   for tag, b, s in ISENSEE_BATCHES
                   for entry, layer, n, ci, co, *_ in ISENSEE_LAYERS]
 ACTIVATION.update({shape[1]: "none" for shape in ISENSEE_SHAPES})
+# the spatial phase's Isensee2017 predictor: a rank's halo'd slab of the
+# 128^3 volume (extent 2n, slab n + 2 rows on SPATIAL_RANKS = 2), batch 1
+HALO_CONV_SHAPES += [
+    (entry, f"halo-isensee {layer}", 1, 2 * n // SPATIAL_RANKS + 2, 2 * n,
+     2 * n, ci, co) for entry, layer, n, ci, co, *_ in ISENSEE_LAYERS]
+ACTIVATION.update({shape[1]: "none" for shape in HALO_CONV_SHAPES
+                   if shape[1].startswith("halo-isensee")})
 KERNELS = {
     "conv3x3": ("fetal_mri_segmentation_tpu_torch/csrc/conv3x3.cu",
                 "fetal_mri_segmentation_tpu/ops/pallas_conv.py:43"),
@@ -378,48 +427,62 @@ def summarize(stats, title: str) -> None:
               f"{s['bound_ms'] / s['ms']:.4f} of the bound", flush=True)
 
 
-def kernel_phase(torch, stats) -> None:
+def dec_case(torch, gen, stats, weight, layer, b, d, h, w, cu, cs,
+             co) -> None:
+    """One fused-decoder shape (coarse b, d, h, w) against its plain
+    version, with the kernel's and the plain version's times."""
     from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
 
     def normal(*shape, std=1.0):
         x = torch.randn(*shape, device="cuda", generator=gen) * std
         return x.to(torch.bfloat16)
 
+    entry = "up_concat_conv3x3_kernel"
+    xd = normal(b, d, h, w, cu)
+    skip = normal(b, 2 * d, 2 * h, 2 * w, cs)
+    k = normal(3, 3, 3, cu + cs, co, std=(27 * (cu + cs)) ** -0.5)
+    bias = torch.randn(co, device="cuda", generator=gen) * 0.1
+    act = (ACTIVATION.get(layer, "relu"), 0.3)
+    out = dec_ops.up_concat_conv3x3_kernel(xd, skip, k, bias, *act)
+    torch.cuda.synchronize()
+    ref = dec_ops.up_concat_conv3x3_reference(
+        xd.float(), skip.float(), k.float(), bias, *act)
+    times = {
+        # the pre-summed K-major weights are made at the first call, kept
+        # with k
+        "ms": time_ms(torch, lambda: dec_ops.up_concat_conv3x3_kernel(
+            xd, skip, k, bias, *act)),
+        "plain_ms": time_ms(
+            torch, lambda: dec_ops.up_concat_conv3x3_reference(
+                xd, skip, k, bias, *act)),
+        # no one PyTorch call upsamples, concatenates and convolves
+        "library_ms": None,
+        "prep_ms": time_ms(torch, lambda: dec_ops.kernel_weights(k, cu))}
+    check(f"{layer} {(b, d, h, w)} {cu}+{cs}->{co} {act[0]}", out, ref,
+          stats, entry, weight, times,
+          2 * b * 8 * d * h * w * (8 * cu + 27 * cs) * co,
+          2 * (xd.numel() + skip.numel() + k.numel() + out.numel()) + 4 * co)
+
+
+def kernel_phase(torch, stats, halo_stats) -> None:
+    """Every kernel shape of the earlier phases into ``stats`` (the serving
+    forward's sums), then the spatial phase's halo'd slabs into
+    ``halo_stats`` (one rank's whole-volume forward summed)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
     for entry, layer, *shape in CONV_SHAPES:
         conv_case(torch, gen, stats, int(layer[:3] in SLICE_LAYERS), entry,
                   layer, *shape)
-
-    entry = "up_concat_conv3x3_kernel"
-    for layer, b, d, h, w, cu, cs, co in DEC_SHAPES:
-        xd = normal(b, d, h, w, cu)
-        skip = normal(b, 2 * d, 2 * h, 2 * w, cs)
-        k = normal(3, 3, 3, cu + cs, co, std=(27 * (cu + cs)) ** -0.5)
-        bias = torch.randn(co, device="cuda", generator=gen) * 0.1
-        act = (ACTIVATION.get(layer, "relu"), 0.3)
-        out = dec_ops.up_concat_conv3x3_kernel(xd, skip, k, bias, *act)
-        torch.cuda.synchronize()
-        ref = dec_ops.up_concat_conv3x3_reference(
-            xd.float(), skip.float(), k.float(), bias, *act)
-        times = {
-            # the pre-summed K-major weights are made at the first call,
-            # kept with k
-            "ms": time_ms(torch, lambda: dec_ops.up_concat_conv3x3_kernel(
-                xd, skip, k, bias, *act)),
-            "plain_ms": time_ms(
-                torch, lambda: dec_ops.up_concat_conv3x3_reference(
-                    xd, skip, k, bias, *act)),
-            # no one PyTorch call upsamples, concatenates and convolves
-            "library_ms": None,
-            "prep_ms": time_ms(torch, lambda: dec_ops.kernel_weights(k, cu))}
-        check(f"{layer} {(b, d, h, w)} {cu}+{cs}->{co} {act[0]}", out, ref,
-              stats, entry, int(layer[:3] in SLICE_LAYERS), times,
-              2 * b * 8 * d * h * w * (8 * cu + 27 * cs) * co,
-              2 * (xd.numel() + skip.numel() + k.numel() + out.numel())
-              + 4 * co)
-        del xd, skip, k, out, ref
+    for layer, *shape in DEC_SHAPES:
+        dec_case(torch, gen, stats, int(layer[:3] in SLICE_LAYERS), layer,
+                 *shape)
     summarize(stats, "slice")
+    for entry, layer, *shape in HALO_CONV_SHAPES:
+        conv_case(torch, gen, halo_stats, int(layer.startswith(
+            "halo-direct")), entry, layer, *shape)
+    for layer, *shape in HALO_DEC_SHAPES:
+        dec_case(torch, gen, halo_stats, int(layer.startswith(
+            "halo-direct")), layer, *shape)
+    summarize(halo_stats, "halo'd slab, one rank's whole-volume forward,")
 
 
 def wgmma_check(lib_path: Path) -> str:
@@ -1766,11 +1829,15 @@ def _scale_config(work: Path, **kw):
     return dataclasses.replace(config, **keys)
 
 
-def _dp_step_check(torch, mesh, label: str) -> dict:
+def _dp_step_check(torch, mesh, label: str, make_step=None,
+                   phase: str = "scale") -> dict:
     """One data-parallel step over ``mesh`` against the single-device step
     on the same global batch of 6, from the same weights, kernels on, with
     and without BatchNorm; exact launch counts of the data-parallel step.
-    Every rank runs both and raises on a difference."""
+    Every rank runs both and raises on a difference. ``make_step``: the
+    mesh's step factory (``make_dp_train_step`` by default; the spatial
+    phase passes ``make_gspmd_train_step``), called as ``(model, config,
+    mesh)`` and stepped with the global batch."""
     import dataclasses
 
     from fetal_mri_segmentation_tpu_torch.models import build_model
@@ -1787,6 +1854,7 @@ def _dp_step_check(torch, mesh, label: str) -> dict:
 
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
+    make_step = make_step or make_dp_train_step
     counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
                 dec_ops.up_concat_conv3x3_kernel)
     out = {}
@@ -1812,7 +1880,7 @@ def _dp_step_check(torch, mesh, label: str) -> dict:
                            if isinstance(m, ConvBlock) and m.norm_key}
             state = TrainState(model, torch.optim.SGD(model.parameters(),
                                                       lr=1.0))
-            step = (make_dp_train_step(model, kcfg, mesh) if kind == "dp"
+            step = (make_step(model, kcfg, mesh) if kind == "dp"
                     else make_train_step(model, kcfg))
             for fn in counters:
                 fn.launches = 0
@@ -1862,7 +1930,7 @@ def _dp_step_check(torch, mesh, label: str) -> dict:
             worst_change=worst, worst_buffer=worst_buffer)
         against = ("the fp32 model (the single-device bf16 step's distance "
                    "beside it)" if bn else "the single-device step")
-        print(f"scale {label} rank {mesh.rank} of {mesh.size}, batchnorm "
+        print(f"{phase} {label} rank {mesh.rank} of {mesh.size}, batchnorm "
               f"{bn}: loss {dp['loss']:.6g} against the single-device "
               f"step's {one['loss']:.6g} (tol {LOSS_TOL}), dice |diff| "
               f"{abs(dp['dice'] - one['dice']):.6g}; relative L2 of each "
@@ -2284,6 +2352,476 @@ def scale_phase(torch, work: Path, smi: str) -> dict:
     return launches
 
 
+# Spatial phase: the depth-sharded and the patch-grid-sharded paths on
+# ranks that share the card over gloo (NCCL on a card each where there are
+# more cards). A rank's forward on its halo'd slab computes every voxel of
+# its slab with the same kernels as the whole volume's forward, so the
+# predictors are held to the one-device predictors by PROB_TOL and the
+# train steps to the single-device step as the scale phase holds its
+# data-parallel step (GRAD_REL_TOL; with BatchNorm each against fp32).
+SPATIAL_RANK_TIMEOUT_S = 600.0
+
+
+def _spatial_config(work: Path, **kw):
+    return _scale_config(work, model_file=str(work / "model.ckpt"),
+                         training_log=str(work / "training.log"), **kw)
+
+
+def _isensee_config():
+    """``configs/fetal_isensee.json`` with both kernel switches on."""
+    import dataclasses
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+
+    return dataclasses.replace(
+        Config.load(str(ROOT / "configs" / "fetal_isensee.json")),
+        use_pallas_conv=True, use_pallas_dec0=True)
+
+
+def _counted(torch, run):
+    """``(run(), launches)``: the kernels' counts zeroed just before the
+    run and read just after it."""
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+
+    counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
+                dec_ops.up_concat_conv3x3_kernel)
+    for fn in counters:
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {fn.__name__: fn.launches for fn in counters}
+
+
+def _peak_bytes(torch, run) -> int:
+    """The most bytes ``run`` held allocated on this process's card above
+    what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _step_peak(torch, mesh, work: Path) -> int:
+    """The peak bytes of one train step on the config's batch of 6 (64^3,
+    kernels on, no augmentation) after a first step: the GSPMD step on
+    ``mesh``, or the single-device step where it is None."""
+    import dataclasses
+
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+        make_gspmd_train_step)
+    from fetal_mri_segmentation_tpu_torch.training.state import TrainState
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+
+    config = dataclasses.replace(_spatial_config(work), augment=False)
+    device = mesh.device if mesh is not None else "cuda"
+    model = build_model(config, device)
+    model.load_state_dict(torch.load(work / "weights.pt"))
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=1e-3))
+    step = (make_train_step(model, config) if mesh is None
+            else make_gspmd_train_step(model, config, mesh))
+    x_np, y_np = train_batch(config)
+    x, y = torch.from_numpy(x_np).to(device), torch.from_numpy(y_np).to(device)
+    step(state, x, y)
+    peak = _peak_bytes(torch, lambda: step(state, x, y))
+    del model, state, step
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _spatial_rank(local_rank: int, world: int, ports: list,
+                  work: str) -> None:
+    """One of the ranks of a 1 x ``world`` spatial mesh (and of the data
+    mesh over the same ranks): the spatial and the sharded predictor on the
+    three volumes against the parent's one-device probabilities, the GSPMD
+    train step against the single-device step, peak memory; then the entry
+    points under a launcher's environment, each on its own rendezvous
+    port. Writes ``spatial_rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from fetal_mri_segmentation_tpu_torch import predict as entry, train
+    from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
+        SlidingWindowPredictor)
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import (
+        make_mesh)
+    from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+        default_backend, initialize_distributed, make_sharded_predictor,
+        rank_environment, shutdown_distributed)
+    from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+        make_gspmd_train_step, make_hybrid_mesh, make_spatial_predictor)
+
+    work = Path(work)
+    os.environ.update(rank_environment(local_rank, world, ports[0]))
+    initialize_distributed(device="cuda", share_devices=True,
+                           timeout_s=SPATIAL_RANK_TIMEOUT_S)
+    result = {}
+    try:
+        backend = default_backend("cuda")
+        config = _spatial_config(work)
+        mesh = make_hybrid_mesh(1, world, device="cuda", share_devices=True)
+        data_mesh = make_mesh(world, device="cuda", share_devices=True)
+        model = build_model(config, mesh.device)
+        model.load_state_dict(torch.load(work / "weights.pt"))
+        reference = torch.load(work / "reference.pt")
+        volumes = [np.load(work / f"volume{i}.npy") for i in range(3)]
+        sharded = make_sharded_predictor(SlidingWindowPredictor(
+            model, config, config.image_shape,
+            overlap=config.validation_patch_overlap), data_mesh)
+        isensee = build_model(_isensee_config(), mesh.device)
+        isensee.load_state_dict(torch.load(work / "isensee_weights.pt"))
+        for tag, predictor, forwards, tol in (
+                ("spatial", make_spatial_predictor(model, config, mesh), 1,
+                 PROB_TOL),
+                ("sharded", sharded, len(sharded.share), PROB_TOL),
+                ("isensee", make_spatial_predictor(
+                    isensee, _isensee_config(), mesh), 1, NORM_PROB_TOL)):
+            t0 = time.perf_counter()
+            probs, launches = _counted(torch, lambda: [
+                predictor.predict_probabilities(v) for v in volumes])
+            seconds = (time.perf_counter() - t0) / len(volumes)
+            diff = flips = far = diff_fp32 = 0
+            for i, (p, q) in enumerate(zip(probs, reference[tag])):
+                p = p.cpu()
+                diff = max(diff, (p - q).abs().max().item())
+                if f"{tag}_fp32" in reference:
+                    diff_fp32 = max(diff_fp32, (
+                        p - reference[f"{tag}_fp32"][i]).abs().max().item())
+                flipped = (p > 0.5) != (q > 0.5)
+                flips += int(flipped.sum())
+                far += int((flipped & ((q - 0.5).abs() >= tol)).sum())
+            result[tag] = dict(launches=launches, forwards=forwards * 3,
+                               diff=diff, flips=flips, far_flips=far,
+                               seconds=seconds, tol=tol, diff_fp32=diff_fp32)
+            if tag == "spatial":
+                result["spatial_peak"] = _peak_bytes(
+                    torch, lambda: predictor.predict_probabilities(
+                        volumes[0]))
+            del probs
+        del model, sharded, isensee
+        torch.cuda.empty_cache()
+        result["step"] = _dp_step_check(
+            torch, mesh, f"1 x {world} spatial mesh over {backend}",
+            make_step=make_gspmd_train_step, phase="spatial")
+        result["step_peak"] = _step_peak(torch, mesh, work)
+        result["backend"] = backend
+    finally:
+        shutdown_distributed()
+    # the entry points as a launcher starts them, each on its own port:
+    # train.main on the spatial mesh, then predict.main over the
+    # validation split from its checkpoint on each mesh
+    entries = {}
+    runs = (
+        ("train.main spatial", lambda: train.main(
+            _spatial_config(work, num_devices=world, spatial_devices=world),
+            str(work / "cases"), seed=0, device="cuda", share_devices=True,
+            verbose=local_rank == 0).step),
+        ("predict.main spatial", lambda: entry.main(
+            config, output_dir=str(work / "pred_spatial"), device="cuda",
+            verbose=False, prob_map=True, spatial_devices=world,
+            share_devices=True)),
+        ("predict.main sharded", lambda: entry.main(
+            config, output_dir=str(work / "pred_sharded"), device="cuda",
+            verbose=False, prob_map=True, num_devices=world,
+            share_devices=True)))
+    for port, (name, run) in zip(ports[1:], runs):
+        os.environ["MASTER_PORT"] = str(port)
+        t0 = time.perf_counter()
+        out, launches = _counted(torch, run)
+        entries[name] = dict(launches=launches, result=out,
+                             seconds=time.perf_counter() - t0)
+    result["entries"] = entries
+    with open(work / f"spatial_rank{local_rank}.json", "w") as f:
+        json.dump(result, f)
+
+
+def _hybrid_rank(local_rank: int, world: int, port: int, work: str) -> None:
+    """One rank of a (world / SPATIAL_RANKS) x SPATIAL_RANKS hybrid mesh:
+    the GSPMD train step against the single-device step, and its peak
+    memory. Writes ``hybrid_rank<r>.json``."""
+    import torch
+
+    from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+        default_backend, initialize_distributed, rank_environment,
+        shutdown_distributed)
+    from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+        make_gspmd_train_step, make_hybrid_mesh)
+
+    work = Path(work)
+    os.environ.update(rank_environment(local_rank, world, port))
+    initialize_distributed(device="cuda", share_devices=True,
+                           timeout_s=SPATIAL_RANK_TIMEOUT_S)
+    try:
+        n_data = world // SPATIAL_RANKS
+        mesh = make_hybrid_mesh(n_data, SPATIAL_RANKS, device="cuda",
+                                share_devices=True)
+        backend = default_backend("cuda")
+        result = dict(backend=backend, step=_dp_step_check(
+            torch, mesh, f"{n_data} x {SPATIAL_RANKS} hybrid mesh over "
+            f"{backend}", make_step=make_gspmd_train_step,
+            phase="spatial"), step_peak=_step_peak(torch, mesh, work))
+        with open(work / f"hybrid_rank{local_rank}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        shutdown_distributed()
+
+
+def spatial_phase(torch, work: Path, smi: str) -> dict:
+    """Multi-device inference and depth-axis spatial sharding
+    (``configs/fetal_unet.json`` at full width, both kernel switches on):
+    the one-device references, the collectives on CUDA tensors over NCCL
+    (one rank), then two ranks (the spatial predictor and the patch-grid
+    sharded predictor on three 128^3 cases, the 1 x 2 GSPMD train step,
+    peak memory, ``train.main`` and ``predict.main`` on both meshes) and
+    four ranks (the 2 x 2 GSPMD train step). Launches exactly 6 / 4 / 3 per
+    forward on every rank of every counted run."""
+    import csv
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from fetal_mri_segmentation_tpu_torch import predict as entry
+    from fetal_mri_segmentation_tpu_torch.data.build import open_data_file
+    from fetal_mri_segmentation_tpu_torch.inference.predict import (
+        preprocess_case)
+    from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
+        SlidingWindowPredictor)
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
+        all_gather_cat, halo_exchange)
+    from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+        free_port, initialize_distributed, join_ranks, rank_environment,
+        run_ranks, shutdown_distributed, start_ranks)
+    from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+        make_direct_predictor)
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        get_training_and_validation_generators)
+    from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    torch.backends.cudnn.allow_tf32 = True  # as the train phase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = _spatial_config(work)
+    torch.save(from_flax(init_flax_like(config, seed=0)), work / "weights.pt")
+    inputs = write_cases(work / "cases", n=6)
+    volumes = []
+    for i, path in enumerate(inputs[:3]):
+        volumes.append(preprocess_case(path, config)[0])
+        np.save(work / f"volume{i}.npy", volumes[-1])
+
+    # 1. one device: the references and the peaks
+    model = build_model(config, "cuda")
+    model.load_state_dict(torch.load(work / "weights.pt"))
+    direct = make_direct_predictor(model, config)
+    sliding = SlidingWindowPredictor(model, config, config.image_shape,
+                                     overlap=config.validation_patch_overlap)
+    # Isensee2017 behind its norms is held to an fp32 model too (as in the
+    # isensee phase): its spatial predictor may be no further from it than
+    # twice the direct predictor is, or PROB_TOL
+    weights = from_flax(init_flax_like(_isensee_config(), seed=0))
+    torch.save(weights, work / "isensee_weights.pt")
+    isensee = {}
+    for kind, cfg in (("isensee", _isensee_config()), (
+            "isensee_fp32", dataclasses.replace(
+                _isensee_config(), use_pallas_conv=False,
+                use_pallas_dec0=False, compute_dtype="float32"))):
+        isensee[kind] = make_direct_predictor(build_model(cfg, "cuda"), cfg)
+        isensee[kind].model.load_state_dict(weights)
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 model stays fp32
+    reference = {tag: [p.predict_probabilities(v).cpu() for v in volumes]
+                 for tag, p in (("spatial", direct), ("sharded", sliding),
+                                *isensee.items())}
+    torch.backends.cudnn.allow_tf32 = True
+    torch.save(reference, work / "reference.pt")
+    isensee_to_fp32 = max(
+        (p - q).abs().max().item() for p, q in zip(
+            reference["isensee"], reference["isensee_fp32"]))
+    del isensee
+    direct_peak = _peak_bytes(torch, lambda: direct.predict_probabilities(
+        volumes[0]))
+    del model, direct, sliding
+    torch.cuda.empty_cache()
+    step_peak = _step_peak(torch, None, work)
+
+    # 2. the collectives on CUDA tensors over NCCL: one rank joins a group
+    # as a launcher would have it
+    launcher = rank_environment(0, 1, free_port())
+    os.environ.update(launcher)
+    try:
+        initialize_distributed(device="cuda")
+        group = torch.distributed.group.WORLD
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("no NCCL group of one rank")
+        x = torch.randn(2, 6, 4, 4, 8, device="cuda").to(torch.bfloat16)
+        x.requires_grad_()
+        for lo, hi in ((1, 1), (2, 2), (0, 1)):
+            y = halo_exchange(x, group, lo, hi)
+            (g,) = torch.autograd.grad(y.float().sum(), x)
+            if not (torch.equal(y.detach(), F.pad(
+                    x.detach(), (0, 0, 0, 0, 0, 0, lo, hi)))
+                    and torch.equal(g, torch.ones_like(x))):
+                raise AssertionError(f"halo_exchange ({lo}, {hi}) over NCCL")
+        if not torch.equal(all_gather_cat(x, group), x.detach()):
+            raise AssertionError("all_gather_cat over NCCL")
+    finally:
+        shutdown_distributed()
+        for key in launcher:
+            os.environ.pop(key, None)
+    print("spatial collectives over NCCL (one rank, CUDA tensors): "
+          "halo_exchange (1, 1), (2, 2), (0, 1) forward and backward and "
+          "all_gather_cat equal their definitions", flush=True)
+
+    # 3. two ranks, and four (the 2 x 2 hybrid step, read in 4.) started
+    # beside them: rank processes take most of their time to start, and
+    # all six share the card
+    t0 = time.perf_counter()
+    world = 2 * SPATIAL_RANKS
+    hybrid_ranks = start_ranks(_hybrid_rank, world,
+                               (world, free_port(), str(work)))
+    try:
+        run_ranks(_spatial_rank, SPATIAL_RANKS,
+                  (SPATIAL_RANKS, [free_port() for _ in range(4)],
+                   str(work)), SPATIAL_RANK_TIMEOUT_S)
+    except BaseException:  # a failure stops the four too
+        for proc in hybrid_ranks.processes:
+            proc.kill()
+        raise
+    two_s = time.perf_counter() - t0
+    join_ranks(hybrid_ranks, SPATIAL_RANK_TIMEOUT_S)
+    four_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"spatial_rank{r}.json").read_text())
+             for r in range(SPATIAL_RANKS)]
+    with open_data_file(config.data_file) as f:
+        _, n_t, _, n_v = get_training_and_validation_generators(
+            f, batch_size=config.batch_size, n_labels=config.n_labels,
+            training_keys_file=config.training_file,
+            validation_keys_file=config.validation_file,
+            patch_shape=config.patch_shape,
+            validation_batch_size=config.validation_batch_size,
+            validation_patch_overlap=config.validation_patch_overlap,
+            training_patch_start_offset=config.training_patch_start_offset,
+            skip_blank=config.skip_blank, seed=0)
+    n_val = len(pickle_load(config.validation_file))
+    launches = {}
+    for r, result in enumerate(ranks):
+        backend = result["backend"]
+        for tag, per in (("spatial", PER_FORWARD), ("sharded", PER_FORWARD),
+                         ("isensee", ISENSEE_PER_FORWARD)):
+            got = result[tag]
+            want = {k: n * got["forwards"] for k, n in per.items()}
+            launches[f"{tag} predictor, rank {r} ({backend})"] = got[
+                "launches"]
+            print(f"spatial {tag} predictor, rank {r} of {SPATIAL_RANKS} "
+                  f"over {backend}: 3 cases of {tuple(config.image_shape)} "
+                  f"against one device: max|p - p_one| {got['diff']:.6g} "
+                  f"<= tol {got['tol']}, label flips {got['flips']}, "
+                  f"{got['far_flips']} with |p - 0.5| >= tol; "
+                  f"{got['seconds']:.4f} s per case (ranks share the card); "
+                  f"launches {got['launches']} for {got['forwards']} "
+                  f"forwards", flush=True)
+            if got["launches"] != want:
+                raise AssertionError(f"{tag} rank {r}: {got['launches']}, "
+                                     f"not {want}")
+            if tag == "isensee":
+                bound = max(2 * isensee_to_fp32, PROB_TOL)
+                print(f"spatial isensee predictor, rank {r}: max|p - p_fp32| "
+                      f"{got['diff_fp32']:.6g} against an fp32 direct model, "
+                      f"the direct predictor's {isensee_to_fp32:.6g} (bound "
+                      f"max(2 x it, {PROB_TOL}) = {bound:.6g})", flush=True)
+                if not got["diff_fp32"] <= bound:
+                    raise AssertionError(f"isensee rank {r} against fp32: "
+                                         f"{got['diff_fp32']} > {bound}")
+            if not got["diff"] <= got["tol"] or got["far_flips"]:
+                raise AssertionError(f"{tag} rank {r}: {got}")
+        launches[f"gspmd step 1 x {SPATIAL_RANKS}, rank {r} ({backend})"] = \
+            result["step"]["batchnorm=True"]["launches"]
+        entries = result["entries"]
+        forwards = {"train.main spatial": config.n_epochs * (n_t + n_v),
+                    "predict.main spatial": n_val,
+                    "predict.main sharded": n_val * result["sharded"][
+                        "forwards"] // 3}
+        for name, run in entries.items():
+            want = {k: n * forwards[name] for k, n in PER_FORWARD.items()}
+            launches[f"{name}, rank {r} ({backend})"] = run["launches"]
+            print(f"spatial {name}, rank {r}: {run['seconds']:.4f} s, "
+                  f"returned {run['result']}, launches {run['launches']} "
+                  f"for {forwards[name]} forwards", flush=True)
+            if run["launches"] != want:
+                raise AssertionError(f"{name} rank {r}: {run['launches']}, "
+                                     f"not {want}")
+        if entries["train.main spatial"]["result"] != config.n_epochs * n_t:
+            raise AssertionError(f"train.main steps {entries}")
+    if any(ranks[0]["step"][k]["loss"] != ranks[1]["step"][k]["loss"]
+           for k in ("batchnorm=False", "batchnorm=True")):
+        raise AssertionError("the ranks' losses differ")
+    with open(config.training_log) as f:
+        rows = list(csv.DictReader(f))
+    print("spatial train.main on the 1 x 2 mesh: " + "; ".join(
+        f"epoch {r['epoch']} loss {float(r['loss']):.6g} val_loss "
+        f"{float(r['val_loss']):.6g} {float(r['patches_per_sec']):.6g} "
+        f"patches/s" for r in rows), flush=True)
+    if [r["epoch"] for r in rows] != ["0", "1"] or not all(
+            np.isfinite(float(r["loss"])) for r in rows):
+        raise AssertionError(f"training log {rows}")
+    # the entries' probability trees against one device from the same
+    # checkpoint: the direct forward for the spatial mesh, the sliding
+    # window for the sharded one
+    for tag, direct in (("spatial", True), ("sharded", False)):
+        out = work / f"one_{tag}"
+        entry.main(config, output_dir=str(out), device="cuda",
+                   verbose=False, prob_map=True, direct=direct)
+        names = sorted(os.listdir(out))
+        if sorted(os.listdir(work / f"pred_{tag}")) != names or len(
+                names) != n_val:
+            raise AssertionError(f"predict.main {tag}: {names}")
+        diff = max(float(np.abs(
+            load_nifti(str(work / f"pred_{tag}" / n / "prediction.nii.gz"))
+            .get_fdata() - load_nifti(str(out / n / "prediction.nii.gz"))
+            .get_fdata()).max()) for n in names)
+        print(f"spatial predict.main on the {tag} mesh against one device "
+              f"({'direct' if direct else 'sliding window'}): max|p - "
+              f"p_one| {diff:.6g} <= tol {PROB_TOL} over {names}", flush=True)
+        if not diff <= PROB_TOL:
+            raise AssertionError(f"predict.main {tag}: {diff}")
+
+    # 4. the four ranks: the 2 x 2 hybrid step
+    hybrid = [json.loads((work / f"hybrid_rank{r}.json").read_text())
+              for r in range(world)]
+    for r, result in enumerate(hybrid):
+        launches[f"gspmd step 2 x {SPATIAL_RANKS}, rank {r} "
+                 f"({result['backend']})"] = result["step"][
+                     "batchnorm=True"]["launches"]
+    if len({h["step"][k]["loss"] for h in hybrid
+            for k in ("batchnorm=False",)}) != 1:
+        raise AssertionError("the hybrid ranks' losses differ")
+    print(f"spatial peak memory ({smi}): a whole-volume "
+          f"{tuple(config.image_shape)} forward {direct_peak} bytes on one "
+          f"device, " + ", ".join(
+              f"rank {r} {res['spatial_peak']} bytes"
+              for r, res in enumerate(ranks))
+          + f" on the 1 x {SPATIAL_RANKS} mesh; a train step of "
+          f"{config.batch_size} x {tuple(config.patch_shape)} {step_peak} "
+          f"bytes on one device, " + ", ".join(
+              f"rank {r} {res['step_peak']} bytes"
+              for r, res in enumerate(ranks))
+          + f" on the 1 x {SPATIAL_RANKS} mesh, " + ", ".join(
+              f"rank {r} {res['step_peak']} bytes"
+              for r, res in enumerate(hybrid))
+          + f" on the 2 x {SPATIAL_RANKS} mesh", flush=True)
+    print(f"spatial ranks: two ranks {two_s:.4f} s, the four beside them "
+          f"done {four_s:.4f} s after the start, each start included",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -2318,16 +2856,18 @@ def main() -> None:
     print(f"build: HGMMA instructions per kernel: {wgmma_check(lib_path)}",
           flush=True)
 
-    stats = {}
+    stats, halo_stats = {}, {}
     seconds = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    kernel_phase(torch, stats)
+    kernel_phase(torch, stats, halo_stats)
     seconds["kernels"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
                         ("serve", serve_phase), ("isensee", isensee_phase),
                         ("experiment", experiment_phase),
                         ("scale", lambda t, w: scale_phase(
+                            t, w, smi.splitlines()[0])),
+                        ("spatial", lambda t, w: spatial_phase(
                             t, w, smi.splitlines()[0]))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2335,7 +2875,7 @@ def main() -> None:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
     (launches, train_launches, serve_launches, isensee, experiment,
-     scale) = results.values()
+     scale, spatial) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -2353,6 +2893,9 @@ def main() -> None:
                                         in experiment.items()},
                 "scale_launches": {path: counts[name] for path, counts
                                    in scale.items()},
+                "spatial_launches": {path: counts[name] for path, counts
+                                     in spatial.items()},
+                "halo_forward": halo_stats[name],
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))

@@ -227,13 +227,9 @@ def check_supported(config) -> None:
     package folds only on a TPU (``models/layers.py::resolve_fold``), and
     the fold is a layout lever for the TPU's conv emitter with the same
     math as the plain path. An explicit fold tuple raises. ``num_devices``
-    above 1 is data-parallel training (``parallel/data_parallel.py``) and
-    passes; a spatial mesh raises."""
-    if config.spatial_devices > 1:
-        raise NotImplementedError(
-            f"spatial_devices={config.spatial_devices}: depth-axis spatial "
-            "sharding is not ported yet (ROADMAP.md queue 1, multi-device "
-            "inference and spatial sharding)")
+    above 1 (data-parallel training, ``parallel/data_parallel.py``) and
+    ``spatial_devices`` above 1 (depth-axis sharding on a hybrid mesh,
+    ``parallel/spatial.py``) pass."""
     if config.fold_level0 not in (None, "auto", "off"):
         raise ValueError(
             f"fold_level0={config.fold_level0!r}: space-to-depth folding is "

@@ -22,7 +22,11 @@ pipeline. ``load_serving_model`` loads the port's own checkpoint
 
 The predictors are the sliding window (``inference/sliding_window.py``) and
 the direct whole-volume predictor (``parallel/spatial.py``), each with
-optional test-time augmentation (``build_serving_predictor``).
+optional test-time augmentation (``build_serving_predictor``). On several
+devices ``run_validation_cases`` shards the sliding window's patch grid
+over a mesh (``parallel/distributed.py::make_sharded_predictor``) or the
+whole volume's depth over a spatial mesh (``parallel/spatial.py``); every
+rank runs the case loop and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
     SlidingWindowPredictor)
 from fetal_mri_segmentation_tpu_torch.models import build_model
 from fetal_mri_segmentation_tpu_torch.ops.resample import DevicePreprocessor
+from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+    make_sharded_predictor)
 from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
-    make_direct_predictor)
+    make_direct_predictor, make_spatial_predictor)
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 from fetal_mri_segmentation_tpu_torch.utils.geometry import (
     process_case_images, resample_to_shape, zoomed_affine)
@@ -378,9 +384,8 @@ def predict_cases_pipelined(cases, predictor, config, *,
 
 def _load_case(case_index, out_dir, data_file, config, submit,
                save_inputs: bool):
-    """Read one case from the dataset; queue the reference's input and
-    truth NIfTIs."""
-    os.makedirs(out_dir, exist_ok=True)
+    """Read one case from the dataset; with ``save_inputs``, queue the
+    reference's input and truth NIfTIs into ``out_dir``."""
     affine = np.asarray(data_file.root.affine[case_index])
     # a copy: the dataset's memory map is read-only, and the predictor
     # stages the volume through pinned memory
@@ -403,6 +408,7 @@ def run_validation_case(case_index: int, out_dir: str, data_file, config,
     and returns the written label map (or the probability map).
     ``io_submit`` as in :func:`predict_case`."""
     submit = io_submit if io_submit is not None else _direct_submit
+    os.makedirs(out_dir, exist_ok=True)
     data, affine = _load_case(case_index, out_dir, data_file, config, submit,
                               save_inputs)
     if output_label_map:
@@ -412,19 +418,8 @@ def run_validation_case(case_index: int, out_dir: str, data_file, config,
                               submit)
 
 
-def _single_device_only(mesh, spatial_mesh) -> None:
-    """``mesh`` / ``spatial_mesh`` carry a device count here (the port has
-    no mesh object): more than one device raises by name."""
-    if mesh is not None and int(mesh) > 1:
-        raise NotImplementedError(
-            f"mesh={mesh}: the patch grid sharded over devices is not "
-            "ported yet (ROADMAP.md queue 1, multi-device inference and "
-            "spatial sharding)")
-    if spatial_mesh is not None and int(spatial_mesh) > 1:
-        raise NotImplementedError(
-            f"spatial_mesh={spatial_mesh}: depth-axis sharding is not "
-            "ported yet (ROADMAP.md queue 1, multi-device inference and "
-            "spatial sharding)")
+def _no_write(target, fn, *args, **kwargs):
+    """The IO of a rank other than 0: nothing."""
 
 
 def run_validation_cases(validation_keys_file: str, model, data_file, config,
@@ -443,21 +438,37 @@ def run_validation_cases(validation_keys_file: str, model, data_file, config,
 
     ``permute``: False | True/"permute" | "flips" (``resolve_tta``).
     ``direct`` runs one whole-volume forward per case (the JAX package's
-    one-device spatial mesh). ``mesh`` and ``spatial_mesh`` are device
-    counts here, and above one device they raise. Returns the number of
-    cases."""
-    _single_device_only(mesh, spatial_mesh)
+    one-device spatial mesh). ``mesh``: a ``parallel/data_parallel.py::
+    DataMesh``; above one device the patch grid is sharded over it.
+    ``spatial_mesh``: a ``parallel/spatial.py::HybridMesh`` (or a data
+    mesh, its one axis taken as the spatial one): one whole-volume forward
+    per case, the depth sharded over it, volume-level TTA; volume dims must
+    be divisible by 2^(depth-1) and the depth by the spatial ranks. A
+    whole-volume forward (``spatial_mesh`` or ``direct``) and a mesh above
+    one device are mutually exclusive, as in the JAX package. On a mesh
+    every rank calls this alike and rank 0 alone writes. Returns the number
+    of cases."""
+    multi = mesh is not None and mesh.size > 1
+    if (spatial_mesh is not None or direct) and multi:
+        raise ValueError(
+            "spatial_mesh and patch-grid mesh are mutually exclusive "
+            "inference modes — pass one of --spatial-devices / "
+            "--num-devices")
     validation_indices = pickle_load(validation_keys_file)
     image_shape = tuple(data_file.root.data.shape[-3:])
     device = None if device is None else resolve_device(device)
-    if direct:
-        predictor = make_direct_predictor(model, config, tta=permute,
-                                          device=device)
+    if spatial_mesh is not None or direct:
+        predictor = make_spatial_predictor(model, config, spatial_mesh,
+                                           tta=permute, device=device)
         predictor._check_shape(image_shape)
     else:
         predictor = SlidingWindowPredictor(
             model, config, image_shape=image_shape, overlap=overlap,
             patch_batch_size=patch_batch_size, device=device, tta=permute)
+        if multi:
+            predictor = make_sharded_predictor(predictor, mesh)
+    active = spatial_mesh if spatial_mesh is not None else mesh
+    is_main = active is None or active.rank == 0
     subject_ids = data_file.subject_ids
 
     def case_dir_of(index):
@@ -470,11 +481,16 @@ def run_validation_cases(validation_keys_file: str, model, data_file, config,
         def submit(target, fn, *a, **kw):
             futures.append(pool.submit(fn, *a, **kw))
 
+        if not is_main:
+            submit = _no_write
+
         def stream():
             for index in validation_indices:
                 case_dir = case_dir_of(index)
+                if is_main:
+                    os.makedirs(case_dir, exist_ok=True)
                 data, affine = _load_case(index, case_dir, data_file, config,
-                                          submit, save_inputs=True)
+                                          submit, save_inputs=is_main)
                 yield data, affine, case_dir, None
 
         if output_label_map:
@@ -488,13 +504,10 @@ def run_validation_cases(validation_keys_file: str, model, data_file, config,
     return n
 
 
-def load_serving_model(config, params: Optional[str] = None,
-                       device="cuda"):
-    """Build the configured model on ``device`` and load its weights: with
-    no ``params`` the model state of the port's own checkpoint at
-    ``config.model_file`` (``training/checkpoint.py``), else the flattened
-    flax params (and ``batch_stats``) that ``tools/export_params_npz.py``
-    wrote as an ``.npz``."""
+def serving_weights(config, params: Optional[str] = None) -> str:
+    """The file the serving model's weights come from: ``params``, else the
+    port's checkpoint at ``config.model_file``; raises where it is
+    missing."""
     path = params if params is not None else config.model_file
     if not os.path.isfile(path):
         raise FileNotFoundError(
@@ -503,6 +516,17 @@ def load_serving_model(config, params: Optional[str] = None,
             "checkpoint config.model_file, read when --params is not "
             "given), or pass --params PARAMS.npz (flattened flax params "
             "from tools/export_params_npz.py)")
+    return path
+
+
+def load_serving_model(config, params: Optional[str] = None,
+                       device="cuda"):
+    """Build the configured model on ``device`` and load its weights: with
+    no ``params`` the model state of the port's own checkpoint at
+    ``config.model_file`` (``training/checkpoint.py``), else the flattened
+    flax params (and ``batch_stats``) that ``tools/export_params_npz.py``
+    wrote as an ``.npz``."""
+    path = serving_weights(config, params)
     model = build_model(config, device)
     if params is None:
         payload = torch.load(path, map_location=resolve_device(device),

@@ -22,6 +22,11 @@ staged in the model's compute dtype (``utils/residency.py::
 stage_to_device``); a tensor already on the card is used in place. The
 ``*_async`` calls enqueue the whole volume's work and return device tensors
 without a synchronization; ``unpack_*`` copies the result to the host.
+
+The patch grid is walked in batches of ``patch_batch_size`` corners, and
+:meth:`SlidingWindowPredictor.accumulate` adds any range of those batches
+into an accumulator: ``parallel/distributed.py::make_sharded_predictor``
+gives each rank of a mesh a contiguous share of them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from fetal_mri_segmentation_tpu_torch.models.layers import set_spatial_group
 from fetal_mri_segmentation_tpu_torch.ops.augment import (
     permute_volume, reverse_permute_volume)
 from fetal_mri_segmentation_tpu_torch.ops.patches import (
@@ -102,6 +108,11 @@ class SlidingWindowPredictor:
         wsum = np.maximum(wsum, 1e-8).astype(np.float32)
         self.weight_map = torch.from_numpy(wmap)[..., None].to(self.device)
         self.weight_sum = torch.from_numpy(wsum)[..., None].to(self.device)
+        # the patch batches this predictor predicts, and the group whose
+        # accumulators it sums (parallel/distributed.py::
+        # make_sharded_predictor); alone, all of them and none
+        self.share = range(self.n_batches)
+        self.group = None
 
     def _window(self, corner):
         return tuple(slice(c, c + s) for c, s in zip(corner, self.patch_shape))
@@ -140,24 +151,41 @@ class SlidingWindowPredictor:
             acc = y if acc is None else acc + y
         return acc / n
 
-    @torch.inference_mode()
-    def predict_probabilities(self, data_cdhw) -> torch.Tensor:
-        """(C, D, H, W) -> fp32 probabilities (L, D, H, W) on the device;
-        enqueued without a synchronization. The module is put in eval
-        mode here, at every prediction (a train step on the same module
-        leaves it in training mode), as the JAX predictor applies with
-        ``train=False`` whatever ran before."""
-        self.model.eval()
-        vol = self._stage_volume(data_cdhw)
+    @property
+    def n_batches(self) -> int:
+        """The patch grid's batches of ``patch_batch_size`` corners."""
+        return -(-len(self.corners) // self.patch_batch_size)
+
+    def accumulate(self, vol: torch.Tensor, batches) -> torch.Tensor:
+        """The Gaussian-weighted predictions of the patch batches numbered
+        in ``batches`` (a range of ``range(n_batches)``), added into one
+        fp32 (D', H', W', L) accumulator over the padded volume ``vol``
+        (:meth:`_stage_volume`)."""
         acc = torch.zeros(self.padded_shape + (self.n_labels,),
                           dtype=torch.float32, device=self.device)
         P = self.patch_batch_size
-        for start in range(0, len(self.corners), P):
-            batch = self.corners[start:start + P]
+        for i in batches:
+            batch = self.corners[i * P:(i + 1) * P]
             patches = torch.stack([vol[self._window(c)] for c in batch])
             preds = self._apply(patches) * self.weight_map
             for c, pred in zip(batch, preds):
                 acc[self._window(c)] += pred
+        return acc
+
+    @torch.inference_mode()
+    def predict_probabilities(self, data_cdhw) -> torch.Tensor:
+        """(C, D, H, W) -> fp32 probabilities (L, D, H, W) on the device;
+        enqueued without a synchronization. The module is put in eval
+        mode, on whole patches, here at every prediction (a train step on
+        the same module leaves it in training mode, a depth-sharded one
+        with a spatial group), as the JAX predictor applies with
+        ``train=False`` whatever ran before."""
+        self.model.eval()
+        set_spatial_group(self.model, None)
+        vol = self._stage_volume(data_cdhw)
+        acc = self.accumulate(vol, self.share)
+        if self.group is not None:
+            torch.distributed.all_reduce(acc, group=self.group)
         prob = acc / self.weight_sum
         crop = tuple(slice(int(b), int(b) + s)
                      for b, s in zip(self.pad_before, self.image_shape))

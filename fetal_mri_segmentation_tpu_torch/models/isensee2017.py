@@ -29,8 +29,8 @@ import torch
 from torch import nn
 
 from fetal_mri_segmentation_tpu_torch.models.layers import (
-    ConvBlock, draw_dropout_masks, head_activation, spatial_dropout_3d,
-    upsample_nearest)
+    ConvBlock, check_slab_depth, draw_dropout_masks, head_activation,
+    spatial_dropout_3d, upsample_nearest)
 from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import conv3d_ndhwc
 
 
@@ -39,7 +39,10 @@ class Isensee2017(nn.Module):
 
     In training with ``dropout_rate`` > 0 the forward needs the spatial
     dropout's keep-masks: ``dropout_masks`` (one (B, f_L) bool tensor per
-    level, :meth:`dropout_masks`) or a ``generator`` to draw them from."""
+    level, :meth:`dropout_masks`) or a ``generator`` to draw them from.
+    With a ``spatial_group`` (``layers.py::set_spatial_group``) x is one
+    depth slab of the volume, a multiple of 2^(depth-1) rows deep, and the
+    masks must be the same on every rank of the group."""
 
     def __init__(self, in_channels: int = 1, n_labels: int = 1,
                  depth: int = 5, n_base_filters: int = 16,
@@ -62,6 +65,7 @@ class Isensee2017(nn.Module):
         self.n_segmentation_levels = n_segmentation_levels
         self.activation_name = activation_name
         self.dtype = dtype
+        self.spatial_group = None
         self.filters = [n_base_filters * 2 ** level for level in range(depth)]
 
         def block(name, cin, cout, **kw):
@@ -100,6 +104,8 @@ class Isensee2017(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 dropout_masks: Optional[List[torch.Tensor]] = None
                 ) -> torch.Tensor:
+        if self.spatial_group is not None:
+            check_slab_depth(x.shape[1], self.depth - 1)
         drop = self.training and self.dropout_rate > 0
         if drop and dropout_masks is None:
             if generator is None:

@@ -12,6 +12,15 @@ taken in fp32.
 Module and parameter names follow the flax tree (``conv``, ``bn``, ``in``,
 ``deconv``; ``scale``, ``bias``, ``mean``, ``var``), so a converted
 checkpoint loads with ``load_state_dict`` (``utils/params.py::from_flax``).
+
+Depth-axis sharding (``parallel/spatial.py``): :func:`set_spatial_group`
+gives every conv block and InstanceNorm of a model the process group of the
+ranks that share a volume's depth, one slab each. A block then runs each 3^3
+conv on its slab extended by its neighbours' rows (``parallel/
+collectives.py::halo_exchange``) and an InstanceNorm takes its moments over
+the whole volume. Max pooling, nearest upsampling, the transposed conv and
+the 1^3 convs need no halo while every slab stays even at every level
+(:func:`check_slab_depth`).
 """
 
 from __future__ import annotations
@@ -29,28 +38,47 @@ from fetal_mri_segmentation_tpu_torch.ops.cuda_lib import cached
 from fetal_mri_segmentation_tpu_torch.ops.dec0 import (
     dec0_available, up_concat_conv3x3, up_concat_conv3x3_kernel)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
-    all_reduce_sum_grad)
+    all_reduce_sum_grad, halo_exchange)
 
 
 class InstanceNorm(nn.Module):
     """Per sample and channel over (D, H, W), in fp32: biased variance, eps
     1e-3 inside the rsqrt, learned ``scale`` / ``bias`` per channel, the
     result in ``dtype`` (the JAX ``InstanceNorm``, keras-contrib's
-    semantics)."""
+    semantics).
+
+    ``group`` (the spatial ranks' process group, :func:`set_spatial_group`):
+    x is one depth slab of each sample, and the per-(sample, channel) sums
+    of x and x^2 and the count are summed over the ranks with a
+    differentiable all-reduce, so the moments are the whole volume's, as
+    ``BatchNorm.group`` does for the batch (variance E[x^2] - E[x]^2,
+    clipped at 0)."""
 
     epsilon = 1e-3
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, group=None):
         super().__init__()
         self.dtype = dtype
+        self.group = group
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-        var = xf.var(dim=(1, 2, 3), correction=0, keepdim=True)
+        if self.group is None:
+            mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+            var = xf.var(dim=(1, 2, 3), correction=0, keepdim=True)
+        else:
+            b, c = xf.shape[0], xf.shape[-1]
+            count = torch.full_like(xf[:1, 0, 0, 0, 0],
+                                    xf[0, ..., 0].numel())
+            sums = all_reduce_sum_grad(torch.cat(
+                [xf.sum(dim=(1, 2, 3)).reshape(-1),
+                 (xf * xf).sum(dim=(1, 2, 3)).reshape(-1), count]),
+                self.group)
+            mean, mean_sq = (sums[:-1] / sums[-1]).reshape(2, b, 1, 1, 1, c)
+            var = (mean_sq - mean * mean).clamp(min=0.0)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(self.dtype)
 
@@ -143,6 +171,17 @@ class ConvBlock(nn.Module):
     version of the parameter, already K-major (the conv kernel's B operand)
     and kept as one tensor, so the fused-decoder kernel's own prepared
     weights are made once too.
+
+    ``spatial_group`` (set by :func:`set_spatial_group`): x is this rank's
+    depth slab. A stride-1 3^3 conv runs on the slab extended by one row of
+    each neighbour and the two extra output rows are cropped (the kernel
+    route pads SAME as it always does, so its launches and shapes are the
+    unsharded route's but two rows deeper); a stride-2 SAME conv, which
+    pads (0, 1) on an even extent, takes one row of the next rank and no
+    zero row in D; the fused decoder takes one coarse row of each neighbour
+    and two skip rows of each, which keeps the skip exactly twice the coarse
+    grid, and crops two fine rows at each end. A rank with no neighbour on a
+    side gets zeros there, the whole volume's SAME padding.
     """
 
     def __init__(self, in_features: int, features: int, *,
@@ -162,6 +201,7 @@ class ConvBlock(nn.Module):
         self.dtype = dtype
         self.use_kernel_conv = use_kernel_conv
         self.use_kernel_dec0 = use_kernel_dec0
+        self.spatial_group = None
         self.conv = nn.Conv3d(in_features, features, kernel_size,
                               stride=stride, device=device)
         # the norm sits under flax's name ("bn" or "in"; "in" is a Python
@@ -212,21 +252,30 @@ class ConvBlock(nn.Module):
         if isinstance(x, (tuple, list)):
             return self._fused_decoder(*x)
         ci = x.shape[-1]
+        group = self.spatial_group if self.kernel_size == 3 else None
+        if group is not None:
+            x = halo_exchange(x, group, 1 if self.stride == 1 else 0, 1)
         if (self.use_kernel_conv and self.kernel_size == 3
                 and self.stride == 1 and conv3x3_available(ci, self.features)):
             op = conv3x3 if ci % 128 == 0 else conv3x3_flat
             y = op(x.to(self.dtype).contiguous(), self._kernel_dhwio(),
                    self.conv.bias.float(), self.kernel_activation,
                    self.negative_slope)
+            if group is not None:
+                y = y[:, 1:-1]
             return self._epilogue(y, activated=not self.norm_key)
-        return self._epilogue(self._plain_conv(x.to(self.dtype)))
+        return self._epilogue(self._plain_conv(x.to(self.dtype),
+                                               halo=group is not None))
 
-    def _plain_conv(self, x: torch.Tensor) -> torch.Tensor:
+    def _plain_conv(self, x: torch.Tensor, halo: bool = False) -> torch.Tensor:
         """SAME conv + bias in the compute dtype (flax ``nn.Conv``): where
         XLA pads an axis unevenly (stride 2 over an even extent pads 0 low,
-        1 high) the input is padded first."""
+        1 high) the input is padded first. ``halo``: x's depth carries its
+        neighbours' rows already, so D is not padded."""
         pads = [same_padding(n, self.kernel_size, self.stride)
                 for n in x.shape[1:4]]
+        if halo:
+            pads[0] = (0, 0)
         padding = tuple(lo for lo, _ in pads)
         if any(lo != hi for lo, hi in pads):
             x = F.pad(x, (0, 0) + tuple(v for p in reversed(pads)
@@ -240,6 +289,12 @@ class ConvBlock(nn.Module):
                        skip: Optional[torch.Tensor]) -> torch.Tensor:
         kernel = self._kernel_dhwio()
         x_deep = x_deep.to(self.dtype)
+        group = self.spatial_group
+        if group is not None:
+            x_deep = halo_exchange(x_deep, group, 1, 1)
+            if skip is not None:
+                skip = halo_exchange(skip, group, 2, 2)
+        activated = False
         if (skip is not None and self.use_kernel_dec0
                 and dec0_available(x_deep.shape, skip.shape,
                                    x_deep.shape[-1], skip.shape[-1],
@@ -248,11 +303,14 @@ class ConvBlock(nn.Module):
                 x_deep.contiguous(), skip.to(self.dtype).contiguous(),
                 kernel, self.conv.bias.float(), self.kernel_activation,
                 self.negative_slope)
-            return self._epilogue(y, activated=not self.norm_key)
-        y = up_concat_conv3x3(
-            x_deep, None if skip is None else skip.to(self.dtype), kernel,
-            self.conv.bias)
-        return self._epilogue(y)
+            activated = not self.norm_key
+        else:
+            y = up_concat_conv3x3(
+                x_deep, None if skip is None else skip.to(self.dtype), kernel,
+                self.conv.bias)
+        if group is not None:
+            y = y[:, 2:-2]
+        return self._epilogue(y, activated=activated)
 
 
 class UpConv(nn.Module):
@@ -336,3 +394,33 @@ def head_activation(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
     if name in ("none", "linear", None):
         return x
     raise ValueError(f"unknown activation {name!r}")
+
+
+def set_spatial_group(model: nn.Module, group) -> None:
+    """Make ``model`` a depth-sharded model over ``group`` (None: whole
+    volumes again): every conv block exchanges halos over it and every
+    InstanceNorm takes its moments over it. The JAX package lets XLA's SPMD
+    partitioner do this from a sharding annotation; a module owns its
+    parameters, so the port sets the group in place, as
+    ``parallel/data_parallel.py::set_bn_group`` does for BatchNorm."""
+    model.spatial_group = group
+    for m in model.modules():
+        if isinstance(m, ConvBlock):
+            m.spatial_group = group
+        elif isinstance(m, InstanceNorm):
+            m.group = group
+
+
+def check_slab_depth(rows: int, levels: int) -> None:
+    """The port's guard for a depth-sharded forward: a slab of ``rows``
+    rows must stay even at each of the model's ``levels`` halvings, so that
+    pooling, strided convs and upsampling need no halo. (XLA reshards such
+    a slab instead; ROADMAP.md queue 3, the slab-depth guard.)"""
+    need = 2 ** levels
+    if rows % need:
+        raise ValueError(
+            f"a depth slab of {rows} rows per spatial rank is not a multiple "
+            f"of 2^{levels}={need}: every slab must stay even at each of the "
+            f"model's {levels} halvings — give each rank a multiple of "
+            f"{need} rows (volume depth = spatial ranks x {need} x k), or "
+            "fewer spatial ranks (ROADMAP.md queue 3, the slab-depth guard)")

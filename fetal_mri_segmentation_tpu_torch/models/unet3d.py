@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from fetal_mri_segmentation_tpu_torch.models.layers import (
-    ConvBlock, UpConv, head_activation, max_pool_3d)
+    ConvBlock, UpConv, check_slab_depth, head_activation, max_pool_3d)
 from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import conv3d_ndhwc
 
 
@@ -28,7 +28,9 @@ class UNet3D(nn.Module):
     """x (B, D, H, W, C) -> (B, D, H, W, n_labels) fp32, NDHWC. BatchNorm
     uses the batch's statistics in training (``self.training``) and the
     running ones in eval; ``bn_group`` (a process group) makes them the
-    global batch's under data parallelism (``layers.py::BatchNorm``)."""
+    global batch's under data parallelism (``layers.py::BatchNorm``).
+    With a ``spatial_group`` (``layers.py::set_spatial_group``) x is one
+    depth slab of the volume, a multiple of 2^(depth-1) rows deep."""
 
     def __init__(self, in_channels: int = 1, n_labels: int = 1,
                  depth: int = 4, n_base_filters: int = 32,
@@ -46,6 +48,7 @@ class UNet3D(nn.Module):
         self.pool_size = tuple(pool_size)
         self.activation_name = activation_name
         self.dtype = dtype
+        self.spatial_group = None
         self.fuse = (fuse_decoder and not deconvolution
                      and self.pool_size == (2, 2, 2))
 
@@ -75,6 +78,8 @@ class UNet3D(nn.Module):
         self.head = nn.Conv3d(cin, n_labels, 1, device=device)
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
+        if self.spatial_group is not None:
+            check_slab_depth(x.shape[1], self.depth - 1)
         x = x.to(self.dtype)
         skips = []
         for level in range(self.depth):

@@ -16,7 +16,12 @@ mesh (``parallel/data_parallel.py::DataMesh.group``). The partial sums are
 then summed over the ranks, so every rank holds the dice of the GLOBAL
 batch, and each rank's gradient is that global dice's gradient restricted
 to its own samples: the ranks' gradients add up to the single-device
-gradient (``parallel/collectives.py::sum_gradients``).
+gradient (``parallel/collectives.py::sum_gradients``). On a hybrid mesh
+(``parallel/spatial.py``) a rank holds a depth slab of some samples and
+``axis_name`` is the whole mesh's group: the flattened dice's sums add up
+over slabs as they do over samples, and the weighted dice places its
+per-(sample, channel) sums at their global rows (``rows``) before the sum,
+so that each sample's dice is taken over its whole volume.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
     all_reduce_sum)
@@ -38,7 +44,8 @@ def _collective_ratio(locals_: dict, f, axis_name=None) -> torch.Tensor:
     stacked sums). The gradient path is the first-order surrogate
     ``sum_k (df/dg_k) * local_k`` with ``df/dg_k`` held constant, whose
     value cancels: each rank's gradient is d(global f)/d(theta) through its
-    own samples only, and the sum over ranks is the global gradient."""
+    own samples only, and the sum over ranks is the global gradient. The
+    partial sums may be tensors of one shape (summed elementwise)."""
     if axis_name is None:
         return f(locals_)
     keys = list(locals_)
@@ -53,7 +60,7 @@ def _collective_ratio(locals_: dict, f, axis_name=None) -> torch.Tensor:
         value = f(leaves)
         dfdg = torch.autograd.grad(value, [leaves[k] for k in keys],
                                    allow_unused=True)
-    surrogate = sum(d * locals_[k] for k, d in zip(keys, dfdg)
+    surrogate = sum((d * locals_[k]).sum() for k, d in zip(keys, dfdg)
                     if d is not None)
     # (surrogate - surrogate) first: exactly zero, so the value is the same
     # bits on every rank, and the ranks' epoch-level decisions agree
@@ -88,43 +95,58 @@ def dice_coefficient_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
 def weighted_dice_coefficient(y_true: torch.Tensor, y_pred: torch.Tensor,
                               axis=(-3, -2, -1), smooth: float = 1e-5,
                               axis_name=None,
-                              sample_mask: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              sample_mask: Optional[torch.Tensor] = None,
+                              rows=None) -> torch.Tensor:
     """Per-channel dice over the spatial axes, mean over channels.
 
     ``sample_mask`` (B,): 1 for real samples, 0 for padding; masked
     samples are left out of the mean. With ``axis_name`` the masked total
     and count are summed over the ranks: the mean over the global ragged
-    batch."""
+    batch. ``rows`` ``(first, total)``: these are rows [first, first + B)
+    of a global batch of ``total`` samples whose depth is split over the
+    ranks too (a hybrid mesh); the per-(sample, channel) sums are summed
+    over ``axis_name`` at their global rows before the ratio, and
+    ``sample_mask`` is then the global batch's (``total``,)."""
     y_true = y_true.float()
     y_pred = y_pred.float()
-    num = 2.0 * (torch.sum(y_true * y_pred, dim=axis) + smooth / 2.0)
-    den = (torch.sum(y_true, dim=axis) + torch.sum(y_pred, dim=axis)
-           + smooth)
-    terms = num / den  # (B, C) for 5-D inputs
-    if sample_mask is not None:
+    sums = {"inter": torch.sum(y_true * y_pred, dim=axis),
+            "true": torch.sum(y_true, dim=axis),
+            "pred": torch.sum(y_pred, dim=axis)}
+
+    def total_and_count(g):
+        terms = (2.0 * (g["inter"] + smooth / 2.0)
+                 / (g["true"] + g["pred"] + smooth))  # (B, C) for 5-D inputs
+        if sample_mask is None:
+            return torch.sum(terms), torch.full((), float(terms.numel()),
+                                                device=terms.device)
         m = sample_mask.float().reshape(
             terms.shape[:1] + (1,) * (terms.ndim - 1))
-        total = torch.sum(terms * m)
-        count = torch.sum(m) * (terms.numel() / terms.shape[0])
-    else:
-        total = torch.sum(terms)
-        count = torch.full((), float(terms.numel()), device=terms.device)
+        return (torch.sum(terms * m),
+                torch.sum(m) * (terms.numel() / terms.shape[0]))
 
-    def f(g):
-        return g["total"] / torch.clamp(g["count"], min=1.0)
+    def ratio(total, count):
+        return total / torch.clamp(count, min=1.0)
 
-    return _collective_ratio({"total": total, "count": count}, f, axis_name)
+    if rows is not None:
+        first, total = rows
+        placed = {k: F.pad(v, (0, 0, first, total - first - v.shape[0]))
+                  for k, v in sums.items()}
+        return _collective_ratio(
+            placed, lambda g: ratio(*total_and_count(g)), axis_name)
+    total, count = total_and_count(sums)
+    return _collective_ratio({"total": total, "count": count},
+                             lambda g: ratio(g["total"], g["count"]),
+                             axis_name)
 
 
 def weighted_dice_coefficient_loss(y_true: torch.Tensor,
                                    y_pred: torch.Tensor,
                                    axis_name=None,
-                                   sample_mask: Optional[torch.Tensor] = None
-                                   ) -> torch.Tensor:
+                                   sample_mask: Optional[torch.Tensor] = None,
+                                   rows=None) -> torch.Tensor:
     """Negative weighted dice."""
     return -weighted_dice_coefficient(y_true, y_pred, axis_name=axis_name,
-                                      sample_mask=sample_mask)
+                                      sample_mask=sample_mask, rows=rows)
 
 
 def label_wise_dice_coefficient(y_true: torch.Tensor, y_pred: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Joining the processes of a multi-GPU run (port of
-``fetal_mri_segmentation_tpu/parallel/distributed.py::
-initialize_distributed``).
+"""Joining the processes of a multi-GPU run, and sliding-window inference
+with the patch grid sharded over them (port of
+``fetal_mri_segmentation_tpu/parallel/distributed.py``).
 
 The JAX package calls ``jax.distributed.initialize`` once per host and
 then sees every device from one process. The port runs one process per
@@ -9,9 +9,14 @@ device: a launcher (``torchrun``, or ``train.py``'s own
 through the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``, ``LOCAL_RANK``), and :func:`initialize_distributed` joins
 them with ``torch.distributed.init_process_group``: NCCL between cards,
-gloo on the CPU. The sharded predictor of the JAX module
-(``make_sharded_predictor``) is multi-device inference and not ported yet
-(ROADMAP.md queue 1, multi-device inference and spatial sharding).
+gloo on the CPU.
+
+:func:`make_sharded_predictor` shards a sliding-window predictor's patch
+grid over a mesh: each rank predicts a contiguous chunk of the patch
+batches into an accumulator of its own, one all-reduce of the accumulators
+merges them (overlap-add is order-free addition; the Gaussian weight field
+depends on the geometry alone and is fixed on the host already), and every
+rank returns the whole probability map, as the JAX ``out_specs=P()``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
+    SlidingWindowPredictor)
+from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 
 
@@ -122,22 +130,58 @@ def rank_environment(rank: int, world: int, port: int) -> dict:
                 MASTER_PORT=str(port))
 
 
-def run_ranks(fn: Callable, world: int, args: tuple = (),
-              timeout_s: Optional[float] = None) -> None:
+def start_ranks(fn: Callable, world: int, args: tuple = ()):
     """Start ``world`` processes of ``fn(rank, *args)``
-    (``torch.multiprocessing.spawn``) and wait for them. A rank's non-zero
-    exit raises, and so does the time limit; no rank outlives this call."""
+    (``torch.multiprocessing.spawn``) without waiting for them; finish with
+    :func:`join_ranks`."""
     import torch.multiprocessing as mp
 
-    ctx = mp.spawn(fn, nprocs=world, join=False, args=args)
+    return mp.spawn(fn, nprocs=world, join=False, args=args)
+
+
+def join_ranks(ctx, timeout_s: Optional[float] = None) -> None:
+    """Wait for the ranks :func:`start_ranks` started. A rank's non-zero
+    exit raises, and so does the time limit; no rank outlives this call."""
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     try:
         while not ctx.join(timeout=5.0):
             if deadline is not None and time.monotonic() > deadline:
-                raise TimeoutError(f"the {world} ranks did not finish "
-                                   f"within {timeout_s:g} s")
+                raise TimeoutError(f"the {len(ctx.processes)} ranks did not "
+                                   f"finish within {timeout_s:g} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.kill()
                 proc.join()
+
+
+def run_ranks(fn: Callable, world: int, args: tuple = (),
+              timeout_s: Optional[float] = None) -> None:
+    """Start ``world`` processes of ``fn(rank, *args)`` and wait for them
+    (:func:`start_ranks`, :func:`join_ranks`)."""
+    join_ranks(start_ranks(fn, world, args), timeout_s)
+
+
+def build_kernels_before_ranks(config, device) -> None:
+    """Compile the kernel library before any rank starts, so that two ranks
+    never race on ``nvcc``: each then finds it built."""
+    if resolve_device(device).type == "cuda" and (
+            config.use_pallas_conv or config.use_pallas_dec0):
+        cuda_lib.build()
+
+
+def make_sharded_predictor(predictor: SlidingWindowPredictor,
+                           mesh) -> SlidingWindowPredictor:
+    """``predictor`` with its patch grid sharded over ``mesh`` (a
+    ``DataMesh``, or any mesh with ``group``, ``rank`` and ``size``): rank
+    r predicts the r-th contiguous chunk of the patch batches, and every
+    rank calls it with the same volume and gets the whole probability map.
+    The math is the single-device predictor's up to the order of the
+    overlap-add's sums. Sets the predictor's ``share`` and ``group`` in
+    place and returns it."""
+    n = predictor.n_batches
+    chunk = -(-n // mesh.size)
+    predictor.share = range(min(mesh.rank * chunk, n),
+                            min((mesh.rank + 1) * chunk, n))
+    predictor.group = mesh.group if mesh.size > 1 else None
+    return predictor

@@ -7,6 +7,7 @@
         [--direct] [--tta] [--tta-mode {permute,flips}]
         [--device-preprocess] [--prob-map]
         [--prob-dtype {float32,float16,uint8,uint16}] [--device cuda]
+        [--num-devices N | --spatial-devices N] [--share-devices]
 
 Each CASE is a directory with ``<modality>.nii[.gz]`` files (and optionally
 ``truth.nii[.gz]``) or a single NIfTI file for one-modality configs. The
@@ -32,9 +33,19 @@ over the 8 axis flips (``--tta-mode`` implies ``--tta``);
 ``--prob-map`` writes the probability map, moved to the host in
 ``--prob-dtype`` (uint8 / uint16 stay integer on disk via NIfTI
 ``scl_slope``). Not ported yet, each refused by name: ``--export``
-(``torch.export``), ``--from-keras`` (Keras interop), ``--num-devices``
-and ``--spatial-devices`` (multi-device inference and spatial sharding),
-all under ROADMAP.md queue 1.
+(``torch.export``) and ``--from-keras`` (Keras interop), under ROADMAP.md
+queue 1.
+
+The validation-set path runs on several devices, one process each:
+``--num-devices N`` shards the sliding window's patch grid over N ranks
+(``parallel/distributed.py::make_sharded_predictor``), ``--spatial-devices
+N`` the whole volume's depth (``parallel/spatial.py``, a 1 x N mesh; with
+``--tta`` volume-level TTA). Under a launcher (``torchrun --nproc-per-node
+N``: ``WORLD_SIZE`` is set) this process is one rank; started alone it
+starts the N ranks itself (``torch.multiprocessing.spawn``), after building
+the kernels once. ``--share-devices`` lets ranks share a card where there
+are fewer cards than ranks (gloo: a check, no speed-up). Rank 0 writes the
+tree.
 """
 
 from __future__ import annotations
@@ -43,12 +54,21 @@ import argparse
 import os
 from typing import Optional, Sequence
 
+import torch
+
 from fetal_mri_segmentation_tpu_torch.config import Config
 from fetal_mri_segmentation_tpu_torch.data.build import open_data_file
 from fetal_mri_segmentation_tpu_torch.inference.predict import (
     build_serving_predictor, load_global_moments, load_serving_model,
     make_device_preprocessor, predict_cases_pipelined, resolve_tta,
-    run_validation_cases)
+    run_validation_cases, serving_weights)
+from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import make_mesh
+from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+    build_kernels_before_ranks, free_port, initialize_distributed,
+    rank_environment, run_ranks, shutdown_distributed)
+from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+    make_hybrid_mesh)
+from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 from fetal_mri_segmentation_tpu_torch.utils.io_utils import (
     case_name_from_path)
 
@@ -79,6 +99,12 @@ def check_flags(inputs, *, device_preprocess=False, prob_map=False,
         raise ValueError(
             "--input is single-device; --num-devices/--spatial-devices "
             "apply to the validation-set path only")
+    if (num_devices or 1) > 1 and (spatial_devices or 1) > 1:
+        # run_validation_cases's own message, before any rank starts
+        raise ValueError(
+            "spatial_mesh and patch-grid mesh are mutually exclusive "
+            "inference modes — pass one of --spatial-devices / "
+            "--num-devices")
     if device_preprocess and not inputs:
         raise ValueError("--device-preprocess applies to raw-NIfTI ingest "
                          "(--input); the validation set is already "
@@ -98,11 +124,52 @@ def check_flags(inputs, *, device_preprocess=False, prob_map=False,
         raise NotImplementedError(
             "--export: the portable program (torch.export) is not ported "
             "yet (ROADMAP.md queue 1, utils/export.py)")
-    if multi:
-        raise NotImplementedError(
-            "--num-devices/--spatial-devices: multi-GPU prediction is not "
-            "ported yet (ROADMAP.md queue 1, multi-device inference and "
-            "spatial sharding)")
+
+
+def _validation_set(config, model, *, output_dir, overlap, tta,
+                    patch_batch_size, direct, prob_map, threshold,
+                    prob_dtype, device, verbose, mesh=None,
+                    spatial_mesh=None) -> int:
+    with open_data_file(config.data_file) as data_file:
+        n = run_validation_cases(
+            config.validation_file, model, data_file, config,
+            output_dir=output_dir, overlap=overlap, permute=tta,
+            patch_batch_size=patch_batch_size, direct=direct,
+            output_label_map=not prob_map, threshold=threshold,
+            prob_dtype=prob_dtype, mesh=mesh, spatial_mesh=spatial_mesh,
+            device=device)
+    if verbose:
+        print(f"predictions written under {output_dir}/")
+    return n
+
+
+def _predict_as_rank(config, params, *, num_devices, spatial_devices,
+                     device, share_devices, verbose, **kwargs) -> int:
+    """One rank of the validation-set prediction on N devices."""
+    initialize_distributed(device=device, share_devices=share_devices)
+    try:
+        if (spatial_devices or 1) > 1:
+            mesh, spatial_mesh = None, make_hybrid_mesh(
+                1, spatial_devices, device=device,
+                share_devices=share_devices)
+            dev, rank = spatial_mesh.device, spatial_mesh.rank
+        else:
+            mesh, spatial_mesh = make_mesh(num_devices, device=device,
+                                           share_devices=share_devices), None
+            dev, rank = mesh.device, mesh.rank
+        model = load_serving_model(config, params, dev)
+        return _validation_set(config, model, device=dev, mesh=mesh,
+                               spatial_mesh=spatial_mesh,
+                               verbose=verbose and rank == 0, **kwargs)
+    finally:
+        shutdown_distributed()
+
+
+def _rank_main(local_rank: int, world: int, port: int, config_dict: dict,
+               params, kwargs: dict) -> None:
+    """One spawned rank: say where it stands, join the group, predict."""
+    os.environ.update(rank_environment(local_rank, world, port))
+    _predict_as_rank(Config.from_dict(config_dict), params, **kwargs)
 
 
 def main(config: Config, params: Optional[str] = None,
@@ -112,29 +179,53 @@ def main(config: Config, params: Optional[str] = None,
          direct: bool = False, device_preprocess: bool = False,
          prob_map: bool = False, prob_dtype: str = "float32",
          export_path: Optional[str] = None, from_keras: Optional[str] = None,
-         num_devices: int = 1, spatial_devices: int = 1) -> int:
+         num_devices: int = 1, spatial_devices: int = 1,
+         share_devices: bool = False,
+         rank_timeout_s: Optional[float] = None) -> Optional[int]:
     """Predict ``inputs``, or without them the dataset's validation split,
-    into ``output_dir``; returns the number of cases. ``params``: an
-    exported ``.npz``, or None for the checkpoint at ``config.model_file``.
-    ``tta``: False | True/"permute" | "flips" (``resolve_tta``)."""
+    into ``output_dir``; returns the number of cases (None where this
+    process only started the ranks). ``params``: an exported ``.npz``, or
+    None for the checkpoint at ``config.model_file``. ``tta``: False |
+    True/"permute" | "flips" (``resolve_tta``). ``num_devices`` /
+    ``spatial_devices`` above 1, ``share_devices``: see the module
+    docstring; ``rank_timeout_s``: the ranks this process starts are
+    killed, and the call raises, when they run longer."""
     check_flags(inputs, device_preprocess=device_preprocess,
                 prob_map=prob_map, prob_dtype=prob_dtype,
                 export_path=export_path, from_keras=from_keras,
                 num_devices=num_devices, spatial_devices=spatial_devices)
     if overlap is None:
         overlap = config.validation_patch_overlap
+    n_dev = max(num_devices or 1, spatial_devices or 1)
+    kwargs = dict(output_dir=output_dir, overlap=overlap, tta=tta,
+                  patch_batch_size=patch_batch_size, direct=direct,
+                  prob_map=prob_map, threshold=threshold,
+                  prob_dtype=prob_dtype, verbose=verbose)
+    ranks = dict(num_devices=num_devices, spatial_devices=spatial_devices,
+                 device=device,
+                 share_devices=share_devices, **kwargs)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1:
+        # one rank under a launcher
+        if n_dev != world:
+            raise ValueError(f"--num-devices/--spatial-devices {n_dev} but "
+                             f"the launcher started {world} processes")
+        return _predict_as_rank(config, params, **ranks)
+    if n_dev > 1:
+        dev = resolve_device(device)
+        cards = (torch.cuda.device_count()
+                 if dev.type == "cuda" and dev.index is None else 1)
+        if dev.type == "cuda" and n_dev > cards and not share_devices:
+            # running on fewer devices than asked for must not pass silently
+            raise ValueError(f"requested {n_dev} devices, have {cards}")
+        serving_weights(config, params)  # before any rank starts
+        build_kernels_before_ranks(config, device)
+        run_ranks(_rank_main, n_dev, (n_dev, free_port(), config.to_dict(),
+                                      params, ranks), rank_timeout_s)
+        return None
     model = load_serving_model(config, params, device)
     if not inputs:
-        with open_data_file(config.data_file) as data_file:
-            n = run_validation_cases(
-                config.validation_file, model, data_file, config,
-                output_dir=output_dir, overlap=overlap, permute=tta,
-                patch_batch_size=patch_batch_size, direct=direct,
-                output_label_map=not prob_map, threshold=threshold,
-                prob_dtype=prob_dtype, device=device)
-        if verbose:
-            print(f"predictions written under {output_dir}/")
-        return n
+        return _validation_set(config, model, device=device, **kwargs)
     predictor = build_serving_predictor(
         model, config, direct=direct, tta=tta, overlap=overlap,
         patch_batch_size=patch_batch_size, device=device)
@@ -192,9 +283,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--from-keras", metavar="MODEL_H5", default=None,
                     help="not ported yet")
     ap.add_argument("--num-devices", type=int, default=1,
-                    help="not ported yet (one device)")
+                    help="shard the patch grid over N devices (the "
+                         "validation-set path)")
     ap.add_argument("--spatial-devices", type=int, default=1,
-                    help="not ported yet (one device)")
+                    help="one whole-volume forward per case, the depth "
+                         "sharded over N devices (the validation-set path)")
+    ap.add_argument("--share-devices", action="store_true",
+                    help="let ranks share a card where there are fewer "
+                         "cards than ranks (gloo; a check, not a speed-up)")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -208,4 +304,5 @@ if __name__ == "__main__":
          direct=args.direct, device_preprocess=args.device_preprocess,
          prob_map=args.prob_map, prob_dtype=args.prob_dtype,
          export_path=args.export, from_keras=args.from_keras,
-         num_devices=args.num_devices, spatial_devices=args.spatial_devices)
+         num_devices=args.num_devices, spatial_devices=args.spatial_devices,
+         share_devices=args.share_devices)

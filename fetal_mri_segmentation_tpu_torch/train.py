@@ -24,10 +24,12 @@ raises where "auto" would fall back to host staging, "off" keeps the host
 pipeline. The run says which it chose.
 
 More than one device trains data-parallel
-(``parallel/data_parallel.py``), one process per device. Under a launcher
-(``torchrun``: ``WORLD_SIZE`` is set) this process is one rank. Started
-alone with ``num_devices`` N > 1 (None: every visible card) it builds the
-dataset and the kernels once and starts N ranks itself
+(``parallel/data_parallel.py``), one process per device; with
+``spatial_devices`` S > 1 on a hybrid mesh of N / S data rows of S ranks
+that split each patch's depth (``parallel/spatial.py``; S must divide N).
+Under a launcher (``torchrun``: ``WORLD_SIZE`` is set) this process is one
+rank. Started alone with ``num_devices`` N > 1 (None: every visible card)
+it builds the dataset and the kernels once and starts N ranks itself
 (``torch.multiprocessing.spawn``). Rank 0 writes the checkpoint and the
 log. ``--share-devices`` lets the ranks share cards where there are fewer
 cards than ranks (over gloo: a check of the multi-rank path, no speed-up).
@@ -36,9 +38,8 @@ cards than ranks (over gloo: a check of the multi-rank path, no speed-up).
 when the file holds them, that ``tools/export_params_npz.py`` wrote from a
 checkpoint of the JAX package. ``--profile LOGDIR`` writes a
 ``torch.profiler`` trace of the run. ``--smoke`` trains a tiny model for
-two epochs on synthetic cases it writes itself. Not ported, each refused by
-name: ``--from-keras`` (Keras interop) and ``spatial_devices`` above 1
-(spatial sharding).
+two epochs on synthetic cases it writes itself. Not ported, refused by
+name: ``--from-keras`` (Keras interop).
 """
 
 from __future__ import annotations
@@ -58,11 +59,12 @@ from fetal_mri_segmentation_tpu_torch.config import Config, check_supported
 from fetal_mri_segmentation_tpu_torch.data.build import (
     dataset_bytes, open_data_file, write_data_to_file)
 from fetal_mri_segmentation_tpu_torch.models import build_model
-from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
 from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import make_mesh
 from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
-    free_port, initialize_distributed, rank_environment, run_ranks,
-    shutdown_distributed)
+    build_kernels_before_ranks, free_port, initialize_distributed,
+    rank_environment, run_ranks, shutdown_distributed)
+from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+    make_hybrid_mesh)
 from fetal_mri_segmentation_tpu_torch.pipeline.device_cache import (
     maybe_build_device_cache)
 from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
@@ -109,7 +111,7 @@ def check_flags(config, *, from_keras=None) -> None:
         raise NotImplementedError(
             "--from-keras: Keras interop is not ported yet (ROADMAP.md "
             "queue 1, interop)")
-    check_supported(config)  # a spatial mesh, a fold tuple
+    check_supported(config)  # a fold tuple
 
 
 def _build_dataset(config, data_dir: str, overwrite: bool,
@@ -138,14 +140,6 @@ def _build_dataset(config, data_dir: str, overwrite: bool,
         print(f"built {config.data_file}: {len(files)} cases, "
               f"{dataset_bytes(config.data_file)} bytes in "
               f"{time.perf_counter() - t0:.4f} s", flush=True)
-
-
-def _build_kernels(config, device) -> None:
-    """Compile the kernel library before any rank starts, so that two ranks
-    never race on ``nvcc``: each then finds it built."""
-    if resolve_device(device).type == "cuda" and (
-            config.use_pallas_conv or config.use_pallas_dec0):
-        cuda_lib.build()
 
 
 def _train(config, *, mesh, init_params, device, seed, verbose,
@@ -240,11 +234,26 @@ def _rank_main(local_rank: int, world: int, port: int, config_dict: dict,
 def _train_as_rank(config, *, device, share_devices, **kwargs):
     initialize_distributed(device=device, share_devices=share_devices)
     try:
-        mesh = make_mesh(device=device, share_devices=share_devices)
+        n_spatial = config.spatial_devices or 1
+        if n_spatial > 1:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            mesh = make_hybrid_mesh(world // n_spatial, n_spatial,
+                                    device=device,
+                                    share_devices=share_devices)
+        else:
+            mesh = make_mesh(device=device, share_devices=share_devices)
         return _train(config, mesh=mesh if mesh.size > 1 else None,
                       device=mesh.device, **kwargs)
     finally:
         shutdown_distributed()
+
+
+def _check_spatial(config, n_dev: int) -> None:
+    """The JAX ``train.py``'s refusal, before anything is built."""
+    n_spatial = config.spatial_devices or 1
+    if n_spatial > 1 and n_dev % n_spatial != 0:
+        sys.exit(f"spatial_devices={n_spatial} must divide the device count "
+                 f"({n_dev}) — devices would sit idle")
 
 
 def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
@@ -272,10 +281,11 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
         if config.num_devices not in (None, world):
             raise ValueError(f"num_devices={config.num_devices} but the "
                              f"launcher started {world} processes")
+        _check_spatial(config, world)
         initialize_distributed(device=device, share_devices=share_devices)
         if dist.get_rank() == 0:
             _build_dataset(config, data_dir, overwrite, verbose)
-            _build_kernels(config, device)
+            build_kernels_before_ranks(config, device)
         dist.barrier()
         return _train_as_rank(config, device=device,
                               share_devices=share_devices, **kwargs)
@@ -284,13 +294,14 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
     cards = (torch.cuda.device_count()
              if dev.type == "cuda" and dev.index is None else 1)
     n_dev = config.num_devices or cards
+    _check_spatial(config, n_dev)
     _build_dataset(config, data_dir, overwrite, verbose)
     if n_dev <= 1:
         return _train(config, mesh=None, device=device, **kwargs)
     if dev.type == "cuda" and n_dev > cards and not share_devices:
         # running on fewer devices than asked for must not pass silently
         raise ValueError(f"requested {n_dev} devices, have {cards}")
-    _build_kernels(config, device)
+    build_kernels_before_ranks(config, device)
     run_ranks(_rank_main, n_dev,
               (n_dev, free_port(), config.to_dict(),
                dict(device=device, share_devices=share_devices, **kwargs)),

@@ -16,7 +16,10 @@ the step gathers its patches on the device; a partial cache mixes such
 steps with host-staged ones. With a ``mesh``
 (``parallel/data_parallel.py``) every rank runs this loop on the same
 batches, trains on its own rows of each, and rank 0 alone writes the
-checkpoint and the log and prints.
+checkpoint and the log and prints. On a hybrid mesh
+(``parallel/spatial.py``: a "spatial" axis) every rank uploads the whole
+batch and the GSPMD steps keep its rows and depth slab after augmenting
+it, with one generator seed on every rank.
 """
 
 from __future__ import annotations
@@ -92,13 +95,15 @@ def train_model(model, state: TrainState, config,
     ``device_cache``: a ``pipeline/device_cache.py::DeviceCaseCache``; the
     generators must then be its index generators (``maybe_build_device_
     cache`` returns all three). ``mesh``: a ``parallel/data_parallel.py::
-    DataMesh`` of more than one rank; every rank calls this with
-    identically seeded generators. Both together train from the cache on
-    every rank; a partial cache is single-device only."""
+    DataMesh`` or a ``parallel/spatial.py::HybridMesh`` of more than one
+    rank; every rank calls this with identically seeded generators. A data
+    mesh and the cache together train from the cache on every rank; a
+    partial cache is single-device only, and a hybrid mesh host-stages."""
     n_epochs = n_epochs if n_epochs is not None else config.n_epochs
     batch_size = config.batch_size
     val_batch_size = config.validation_batch_size or batch_size
     dp = mesh is not None and mesh.size > 1
+    spatial = dp and "spatial" in mesh.axis_names
     # on a mesh every rank computes the same metrics and takes the same
     # decisions; rank 0 alone writes and prints
     is_main = not dp or mesh.rank == 0
@@ -127,7 +132,7 @@ def train_model(model, state: TrainState, config,
                   f"sidecar epoch {peeked} — the data order of this resumed "
                   "run will not exactly match an uninterrupted run")
 
-    if device_cache is not None and dp and "spatial" in mesh.axis_names:
+    if device_cache is not None and spatial:
         raise ValueError(
             "device_cache is not supported on spatial/hybrid meshes (a "
             "depth-sharded volume axis would need halo-aware gathers) — "
@@ -151,6 +156,13 @@ def train_model(model, state: TrainState, config,
             make_dp_eval_step, make_dp_train_step, replicate_state,
             shard_batch)
         state = replicate_state(mesh, state)
+    if spatial:
+        from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+            make_gspmd_eval_step, make_gspmd_train_step)
+        steps = {"host": (
+            make_gspmd_train_step(model, config, mesh, generator=generator),
+            make_gspmd_eval_step(model, config, mesh))}
+    elif dp:
         steps = {"host": (
             make_dp_train_step(model, config, mesh, generator=generator,
                                sharded=True),
@@ -192,8 +204,8 @@ def train_model(model, state: TrainState, config,
     x_bf16 = getattr(model, "dtype", None) == torch.bfloat16
 
     def stage_host(x, y, bs):
-        """Pad to the static batch, compress, keep this rank's rows and
-        start the upload."""
+        """Pad to the static batch, compress, keep this rank's rows (the
+        GSPMD steps take the whole batch) and start the upload."""
         x, y, n_valid = pad_batch(x, y, bs)
         x = torch.from_numpy(np.ascontiguousarray(x))
         if x_bf16:
@@ -201,7 +213,7 @@ def train_model(model, state: TrainState, config,
         yb = y.astype(np.uint8)
         if np.array_equal(y, yb):
             y = yb
-        if dp:
+        if dp and not spatial:
             x, y = shard_batch(mesh, x, y)
         return "host", to_device(x, device), to_device(y, device), n_valid
 
@@ -229,8 +241,9 @@ def train_model(model, state: TrainState, config,
     dice_history: list = []
     collapse_warned = False
     for epoch in range(start_epoch, n_epochs):
-        generator.manual_seed(epoch_seed(seed, epoch,
-                                         mesh.rank if dp else None))
+        # a hybrid mesh augments the whole batch alike on every rank
+        generator.manual_seed(epoch_seed(
+            seed, epoch, mesh.rank if dp and not spatial else None))
         meter.reset()
         t0 = time.perf_counter()
         train_metrics, weights = [], []

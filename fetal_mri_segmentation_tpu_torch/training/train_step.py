@@ -29,6 +29,15 @@ rank; each rank's backward gives its share of the global gradient, and the
 shares are SUMMED over the ranks before the optimizer steps
 (``parallel/collectives.py::sum_gradients``), so the global-norm clip and
 Adam see the single-device gradient on every rank.
+
+``partition`` is the hybrid data x spatial form (``parallel/spatial.py::
+HybridMesh``, the JAX GSPMD steps): every rank gets the GLOBAL batch,
+augments it and draws Isensee2017's dropout masks for all of it from a
+generator seeded alike on every rank (``permute`` exchanges D with H and W,
+so augmentation acts before the depth is cut), then keeps its rows and its
+depth slab. ``axis_name`` is then the whole mesh's group: the loss and the
+metrics are the global batch's, and the ranks' gradient shares are summed
+as above. The result equals the single-device step on the global batch.
 """
 
 from __future__ import annotations
@@ -43,28 +52,29 @@ from fetal_mri_segmentation_tpu_torch.config import check_supported
 from fetal_mri_segmentation_tpu_torch.models.layers import BatchNorm
 from fetal_mri_segmentation_tpu_torch.ops.augment import augment_batch
 from fetal_mri_segmentation_tpu_torch.ops.dice import (
-    dice_coefficient, dice_coefficient_loss, weighted_dice_coefficient_loss)
+    dice_coefficient, weighted_dice_coefficient_loss)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
     sum_gradients)
 
 
 def get_loss_fn(config) -> Callable:
-    """``loss(y, pred, sample_mask, axis_name)``: the weighted dice for
-    Isensee or ``n_labels > 1``, else the negative dice with padded
+    """``loss(y, pred, sample_mask, axis_name, rows)``: the weighted dice
+    for Isensee or ``n_labels > 1``, else the negative dice with padded
     samples' truth and prediction zeroed (the ragged batch's dice,
     exactly). With ``axis_name`` (a process group) the value is the global
-    batch's on every rank."""
+    batch's on every rank. ``rows`` ``(first, total)``: y holds rows
+    [first, first + B) of a global batch split in depth too (a hybrid
+    mesh), and ``sample_mask`` is the global batch's."""
     if config.model_name == "isensee" or config.n_labels > 1:
-        def loss(y, pred, sample_mask=None, axis_name=None):
+        def loss(y, pred, sample_mask=None, axis_name=None, rows=None):
             return weighted_dice_coefficient_loss(
-                y, pred, axis_name=axis_name, sample_mask=sample_mask)
+                y, pred, axis_name=axis_name, sample_mask=sample_mask,
+                rows=rows)
     else:
-        def loss(y, pred, sample_mask=None, axis_name=None):
-            if sample_mask is not None:
-                m = sample_mask.reshape((-1,) + (1,) * (y.ndim - 1))
-                y = y * m
-                pred = pred * m
-            return dice_coefficient_loss(y, pred, axis_name=axis_name)
+        def loss(y, pred, sample_mask=None, axis_name=None, rows=None):
+            # the negative dice, as dice_coefficient_loss computes it
+            return -_masked_dice(y, pred, _local(sample_mask, rows, y),
+                                 axis_name)
     return loss
 
 
@@ -86,7 +96,7 @@ def _entry(model, x, y):
 
 def make_train_step(model, config, *,
                     generator: Optional[torch.Generator] = None,
-                    axis_name=None,
+                    axis_name=None, partition=None,
                     debug_return_batch: bool = False) -> Callable:
     """``step(state, x, y, n_valid=None) -> metrics``; updates ``state``
     (parameters, optimizer, step count) in place.
@@ -96,8 +106,10 @@ def make_train_step(model, config, *,
     drops. ``n_valid`` < batch masks the padded tail of a ragged batch out
     of the loss and the metrics. ``axis_name``: the data mesh's process
     group (see the module docstring); x, y and ``n_valid`` are then this
-    rank's. ``debug_return_batch``: the step returns ``(metrics, (x, y))``
-    with the batch as it was trained on, after augmentation."""
+    rank's. ``partition``: a hybrid mesh (see the module docstring); x, y
+    and ``n_valid`` are then the global batch's. ``debug_return_batch``:
+    the step returns ``(metrics, (x, y))`` with the batch as it was trained
+    on, after augmentation (this rank's part of it)."""
     check_supported(config)
     loss_fn = get_loss_fn(config)
     do_augment = config.augment and any(
@@ -126,11 +138,17 @@ def make_train_step(model, config, *,
         model.train()
         masks = (model.dropout_masks(x.shape[0], generator, x.device)
                  if needs_dropout else None)
+        rows = None
+        if partition is not None:
+            rows = partition.row_range(x.shape[0])
+            x, y = partition.shard(x, y)
+            if masks is not None:
+                masks = [m[rows[0]:rows[0] + x.shape[0]] for m in masks]
         if remat:
             pred = checkpoint(_forward, model, x, masks, use_reentrant=False)
         else:
             pred = _forward(model, x, masks)
-        loss = loss_fn(y, pred, sample_mask, axis_name)
+        loss = loss_fn(y, pred, sample_mask, axis_name, rows)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if axis_name is not None:
@@ -140,11 +158,8 @@ def make_train_step(model, config, *,
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            pred = pred.detach()
-            metrics = {"loss": loss.detach(),
-                       "dice": _masked_dice(y, pred, sample_mask, axis_name)}
-            metrics.update(_label_wise_metrics(config, y, pred,
-                                               sample_mask, axis_name))
+            metrics = _metrics(config, loss.detach(), y, pred.detach(),
+                               _local(sample_mask, rows, y), axis_name)
         if debug_return_batch:
             return metrics, (x, y)
         return metrics
@@ -152,25 +167,43 @@ def make_train_step(model, config, *,
     return step
 
 
-def make_eval_step(model, config) -> Callable:
+def make_eval_step(model, config, *, partition=None) -> Callable:
     """``eval_step(state, x, y, n_valid=None, axis_name=None) -> metrics``:
     no augmentation, no gradient. ``axis_name``: the data mesh's process
-    group; the metrics are then the global batch's."""
+    group; the metrics are then the global batch's. ``partition``: a
+    hybrid mesh, as in :func:`make_train_step`."""
     loss_fn = get_loss_fn(config)
 
     @torch.no_grad()
     def step(state, x, y, n_valid=None, axis_name=None):
         x, y = _entry(model, x, y)
         model.eval()
-        pred = _forward(model, x)
         sample_mask = _sample_mask(x, n_valid)
-        metrics = {"loss": loss_fn(y, pred, sample_mask, axis_name),
-                   "dice": _masked_dice(y, pred, sample_mask, axis_name)}
-        metrics.update(_label_wise_metrics(config, y, pred, sample_mask,
-                                           axis_name))
-        return metrics
+        rows = None
+        if partition is not None:
+            rows = partition.row_range(x.shape[0])
+            x, y = partition.shard(x, y)
+        pred = _forward(model, x)
+        return _metrics(config, loss_fn(y, pred, sample_mask, axis_name, rows),
+                        y, pred, _local(sample_mask, rows, y), axis_name)
 
     return step
+
+
+def _metrics(config, loss, y, pred, sample_mask, axis_name) -> dict:
+    metrics = {"loss": loss,
+               "dice": _masked_dice(y, pred, sample_mask, axis_name)}
+    metrics.update(_label_wise_metrics(config, y, pred, sample_mask,
+                                       axis_name))
+    return metrics
+
+
+def _local(sample_mask, rows, y):
+    """This rank's rows of the global batch's ``sample_mask`` (it is this
+    rank's already where there are no ``rows``)."""
+    if sample_mask is None or rows is None:
+        return sample_mask
+    return sample_mask[rows[0]:rows[0] + y.shape[0]]
 
 
 def _sample_mask(x: torch.Tensor, n_valid) -> Optional[torch.Tensor]:

@@ -13,7 +13,8 @@ checkpoint, ``evaluate.main``, ``ensemble.main``; an HDF5 file at
 the device case cache and the data mesh run too (``train.main`` with
 ``device_case_cache="on"`` equal to "off", and one rank that joins a gloo
 group through ``initialize_distributed`` and takes a data-parallel cached
-step);
+step, a GSPMD step on a 1 x 1 hybrid mesh and predicts with the spatial
+and the patch-grid sharded predictors);
 ``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone."""
 
@@ -255,6 +256,30 @@ metrics = dstep(create_train_state(dmodel, ecfg), cache.data_stack,
                 cache.truth_stack, torch.from_numpy(rows),
                 torch.from_numpy(corners), n_valid)
 assert torch.isfinite(metrics["loss"])
+# multi-device inference and spatial sharding on the same one-rank group:
+# a GSPMD step on a 1 x 1 hybrid mesh, the spatial predictor on it, and the
+# patch-grid sharded predictor on the data mesh
+from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
+    make_sharded_predictor)
+from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+    make_gspmd_train_step, make_hybrid_mesh, make_spatial_predictor)
+
+hmesh = make_hybrid_mesh(1, 1, device="cpu")
+assert hmesh.group is not None and hmesh.spatial_group is None
+smodel = build_model(ecfg, "cpu")
+sstep = make_gspmd_train_step(smodel, ecfg, hmesh,
+                              generator=torch.Generator().manual_seed(0))
+metrics = sstep(create_train_state(smodel, ecfg),
+                torch.from_numpy(data[:2, :, :8, :8, :8].copy()),
+                torch.from_numpy(truth[:2, :, :8, :8, :8].astype(np.float32)))
+assert torch.isfinite(metrics["loss"])
+vol = np.random.default_rng(3).normal(size=(1, 16, 16, 16)).astype(
+    np.float32)
+for pred in (make_spatial_predictor(smodel, ecfg, hmesh),
+             make_sharded_predictor(SlidingWindowPredictor(
+                 smodel, ecfg, (16, 16, 16), overlap=2), mesh)):
+    prob = pred(vol)
+    assert prob.shape == (1, 16, 16, 16) and np.isfinite(prob).all()
 shutdown_distributed()
 for key in launcher:
     del os.environ[key]

@@ -192,10 +192,12 @@ def test_predict_main_uint8_probabilities_match_root(experiment, monkeypatch):
      "--device-preprocess"),
     ({"prob_map": True, "export_path": "x"}, ValueError, "not exportable"),
     ({"num_devices": 2}, ValueError, "single-device"),
-    ({"inputs": None, "num_devices": 2}, NotImplementedError,
-     "multi-device inference"),
-    ({"inputs": None, "spatial_devices": 2}, NotImplementedError,
-     "spatial sharding"),
+    # several devices on the validation-set path are ported: the weights
+    # are looked for before any rank starts; both meshes at once refuse
+    ({"inputs": None, "num_devices": 2}, FileNotFoundError,
+     "--params PARAMS.npz"),
+    ({"inputs": None, "spatial_devices": 2, "num_devices": 2}, ValueError,
+     "mutually exclusive"),
     ({"export_path": "x"}, NotImplementedError, "torch.export"),
     ({"from_keras": "m.h5"}, NotImplementedError, "Keras interop"),
     # the validation-set path is ported: with no weights at either place

@@ -236,18 +236,35 @@ def test_init_params_with_adam_moments_from_the_export_tool(runs, cases,
                    init_params=npz, device="cpu")
 
 
-@pytest.mark.parametrize("kw,flags,match", [
-    ({}, {"from_keras": "m.h5"}, "Keras interop"),
-    ({"spatial_devices": 2}, {}, "spatial sharding"),
-    ({"spatial_devices": 2, "num_devices": 4}, {},
-     "multi-device inference and spatial sharding"),
-    ({"spatial_devices": 2, "device_case_cache": "on"}, {},
-     "spatial sharding"),
+@pytest.mark.parametrize("kw,flags,error,match", [
+    ({}, {"from_keras": "m.h5"}, NotImplementedError, "Keras interop"),
+    ({"spatial_devices": 2}, {}, SystemExit,
+     r"spatial_devices=2 must divide the device count \(1\)"),
+    ({"spatial_devices": 3, "num_devices": 4}, {}, SystemExit,
+     r"spatial_devices=3 must divide the device count \(4\)"),
+    ({"spatial_devices": 2, "device_case_cache": "on"}, {"train_model": 1},
+     ValueError, "device_cache is not supported on spatial/hybrid meshes"),
 ])
-def test_refusals_by_name(cases, tmp_path, kw, flags, match):
+def test_refusals_by_name(cases, tmp_path, kw, flags, error, match):
+    """What the port still refuses, before any work: Keras interop; a
+    ``spatial_devices`` that does not divide the device count (the JAX
+    ``train.py``'s exit); and, in ``train_model``, a device case cache on a
+    spatial mesh, as the JAX loop does (``train.main`` keeps host staging
+    there: ``maybe_build_device_cache`` declines a spatial mesh)."""
     cfg = make_cfg(Config, tmp_path, "data", **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        entry.main(cfg, str(cases / "cases"), device="cpu", **flags)
+    with pytest.raises(error, match=match):
+        if flags.pop("train_model", None):
+            from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+                HybridMesh)
+            from fetal_mri_segmentation_tpu_torch.training.loop import (
+                train_model)
+            model = build_model(cfg, "cpu")
+            mesh = HybridMesh(None, None, None, 0, 1, 2, torch.device("cpu"))
+            train_model(model, create_train_state(model, cfg), cfg,
+                        iter(()), iter(()), 1, 1, mesh=mesh,
+                        device_cache=object(), verbose=False)
+        else:
+            entry.main(cfg, str(cases / "cases"), device="cpu", **flags)
     assert not os.path.exists(cfg.data_file)  # refused before any work
 
 

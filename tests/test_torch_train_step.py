@@ -268,26 +268,22 @@ def test_eval_step_masks_the_padded_tail_and_reports_label_dice():
     ({"num_devices": 4}, "data-parallel"),
     ({"spatial_devices": 2}, "spatial sharding")])
 def test_check_supported_refuses_what_is_not_ported(kw, item):
-    """The train step and ``check_supported`` (which ``build_model`` runs)
-    refuse a spatial mesh by name; the resampling augmentations are ported,
-    so a step is made for them (and needs a generator), and so is
-    data-parallel training: ``num_devices`` above 1 passes."""
+    """Every one of these is ported now and passes ``check_supported``
+    (which ``build_model`` runs) and makes a train step: the resampling
+    augmentations (the step needs a generator), data-parallel training
+    (``num_devices`` above 1) and depth-axis spatial sharding
+    (``spatial_devices`` above 1; the mesh comes from
+    ``parallel/spatial.py``, and a single-device step on the same config
+    trains the whole volume)."""
     cfg = Config(**kw)
     model = build_model(Config(depth=2, n_base_filters=8), "cpu")
-    if item == "data-parallel":
-        check_supported(cfg)
-        make_train_step(model, cfg, generator=torch.Generator())
-        return
+    check_supported(cfg)
+    make_train_step(model, cfg, generator=torch.Generator())
     if item is None:
-        check_supported(cfg)
-        make_train_step(model, cfg, generator=torch.Generator())
         with pytest.raises(ValueError, match="torch.Generator"):
             make_train_step(model, Config(flip=False, permute=False, **kw))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        make_train_step(model, cfg, generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(cfg)
+    if item == "spatial sharding":
+        build_model(Config(depth=2, n_base_filters=8, **kw), "cpu")
 
 
 def test_augmentations_refused_for_training_only():

@@ -17,7 +17,8 @@ import jax.numpy as jnp  # noqa: E402
 from fetal_mri_segmentation_tpu.config import Config  # noqa: E402
 from fetal_mri_segmentation_tpu.models.unet3d import UNet3D as JaxUNet3D  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models import build_model  # noqa: E402
-from fetal_mri_segmentation_tpu_torch.models.layers import max_pool_3d  # noqa: E402
+from fetal_mri_segmentation_tpu_torch.models.layers import (  # noqa: E402
+    max_pool_3d, set_spatial_group)
 from fetal_mri_segmentation_tpu_torch.models.unet3d import UNet3D  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.utils.params import from_flax  # noqa: E402
 
@@ -92,15 +93,25 @@ def test_max_pool_drops_the_remainder_like_valid_pooling():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("kw,error,match", [
-    ({"spatial_devices": 4}, NotImplementedError,
-     "multi-device inference and spatial sharding"),
-    ({"spatial_devices": 2}, NotImplementedError, "spatial"),
-    ({"fold_level0": (1, 1, 2)}, ValueError, "fold_level0"),
+@pytest.mark.parametrize("kw,rows,error,match", [
+    ({"spatial_devices": 4}, 4, ValueError, r"slab of 4 rows .* 2\^3=8"),
+    ({"spatial_devices": 2}, 6, ValueError, r"slab of 6 rows .* 2\^3=8"),
+    ({"fold_level0": (1, 1, 2)}, None, ValueError, "fold_level0"),
 ])
-def test_build_model_refuses_what_is_not_ported(kw, error, match):
-    with pytest.raises(error, match=match):
-        build_model(Config(**kw), "cpu")
+def test_build_model_refuses_what_is_not_ported(kw, rows, error, match):
+    """A fold tuple is refused at build time. A spatial mesh is ported and
+    builds; what is refused is a depth slab that does not stay even at
+    every level (the port's slab-depth guard), at the first forward on a
+    model made depth-sharded."""
+    if rows is None:
+        with pytest.raises(error, match=match):
+            build_model(Config(**kw), "cpu")
+    else:
+        model = build_model(Config(**kw), "cpu")
+        assert isinstance(model, UNet3D)
+        set_spatial_group(model, object())  # raises before any collective
+        with pytest.raises(error, match=match):
+            model(torch.zeros(1, rows, 16, 16, 1))
     # a data-parallel device count is ported and builds
     build_model(Config(num_devices=4, depth=2, n_base_filters=8), "cpu")
 

@@ -46,8 +46,10 @@ from fetal_mri_segmentation_tpu_torch.inference.predict import (  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (  # noqa: E402
     SlidingWindowPredictor)
 from fetal_mri_segmentation_tpu_torch.models import build_model  # noqa: E402
+from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import (  # noqa: E402
+    DataMesh)
 from fetal_mri_segmentation_tpu_torch.parallel.spatial import (  # noqa: E402
-    make_direct_predictor)
+    HybridMesh, make_direct_predictor)
 from fetal_mri_segmentation_tpu_torch.training.checkpoint import (  # noqa: E402
     CheckpointIO)
 from fetal_mri_segmentation_tpu_torch.training.state import (  # noqa: E402
@@ -277,13 +279,26 @@ def test_run_validation_case_and_names_without_subject_ids(experiment,
                         ).get_fdata())
 
 
-@pytest.mark.parametrize("kw,match", [({"mesh": 2},
-                                       "multi-device inference"),
-                                      ({"spatial_mesh": 4}, "spatial")])
+@pytest.mark.parametrize("kw,match", [
+    ({"mesh": DataMesh(None, 0, 2, torch.device("cpu")),
+      "spatial_mesh": HybridMesh(None, None, None, 0, 1, 2,
+                                 torch.device("cpu"))},
+     "mutually exclusive"),
+    ({"spatial_mesh": HybridMesh(None, None, None, 0, 1, 5,
+                                 torch.device("cpu"))},
+     "volume depth 24 not divisible by the mesh's 5 spatial shards"),
+    ({"spatial_mesh": HybridMesh(None, None, None, 0, 1, 4,
+                                 torch.device("cpu"))},
+     "a depth slab of 6 rows per spatial rank is not a multiple of 2\\^2")])
 def test_more_than_one_device_raises_by_name(experiment, tmp_path, kw, match):
+    """More than one device is ported (``tests/test_torch_sharded_predict.py``
+    runs both meshes on two ranks); what still raises, before any case is
+    read or written: both meshes at once, a volume depth that does not
+    split over the spatial ranks (JAX's messages), and a slab that does not
+    survive the model's halvings (the port's slab-depth guard)."""
     _, _, cfg, _, _, model = experiment
     with open_data_file(cfg.data_file) as data_file:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             run_validation_cases(cfg.validation_file, model, data_file, cfg,
                                  output_dir=str(tmp_path / "o"), device="cpu",
                                  **kw)
