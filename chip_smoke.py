@@ -105,15 +105,33 @@ Phases, one line each (or one line per checked shape):
    (as the scale phase's), each rank's peak memory, and as a launcher
    starts them ``train.main`` with ``spatial_devices=2`` for two epochs
    and ``predict.main`` with ``spatial_devices=2`` and ``num_devices=2``
-   over the validation split (probabilities against one device's); then
-   four ranks: the 2 x 2 hybrid step. Launches exactly 6 / 4 / 3 per
-   forward on every rank of every counted run.
+   over the validation split (probabilities against one device's); the
+   spatial predictor on a (120, 128, 128) volume, whose 60-row slabs go
+   odd at level 2 and are gathered whole there, against the direct
+   predictor; then four ranks: the 2 x 2 hybrid step. Launches exactly 6 /
+   4 / 3 per forward on every rank of every counted run;
+11. interop: both configs at full width through the Keras mapping
+   (``keras_export`` into a stand-in with Keras's ``layers`` /
+   ``get_weights`` / ``set_weights`` surface, ``keras_import`` back: state
+   dicts equal bit for bit; the imported U-Net serves the three cases with
+   the kernels, labels equal the original's), then the portable program:
+   ``export_predictor`` with ``["cuda"]`` (the kernels as custom ops in the
+   graph) and the default platforms, sliding window and direct, Isensee2017
+   with ``["cuda"]``, and ``predict.main`` with ``export_path``, every
+   artifact loaded in a fresh process on the card that imports no model
+   module: the ``["cuda"]`` programs against the live kernels-on predictors
+   (``PROB_TOL`` / ``NORM_PROB_TOL``, no flip away from 0.5), the portable
+   ones against the switches off, launches exactly the live path's per
+   forward (none for a portable program), seconds per case and to load;
+   and the host time of one launch through the public wrapper, the custom
+   op alone and the ctypes launch alone.
 
 The kernel phase also checks every kernel layer of the direct 128^3
 forward at batch 1 and at the TTA chunks of 2 and 8, and the spatial
 phase's halo'd slabs (a rank's 64 + 2 rows of the 128^3 volume, and of
 the train step's 64^3 patches at batches 6 and 3; Isensee2017's on the
-volume), and prints each shape's
+volume; the reshard case's slabs and whole levels), and prints each
+shape's
 bound (the larger of its operations over the bf16 peak and its bytes over
 the HBM rate) and the time of one cuDNN convolution on the same inputs
 (``library_ms``).
@@ -256,6 +274,38 @@ HALO_CONV_SHAPES = [
 HALO_DEC_SHAPES = [
     (f"{tag} {layer}", b, s * d // SPATIAL_RANKS + 2, s * h, s * w, *rest)
     for tag, b, s in HALO_BATCHES
+    for layer, _, d, h, w, *rest in DEC_SHAPES if layer[:3] in SLICE_LAYERS]
+# The spatial phase's reshard case: a (120, 128, 128) volume on
+# SPATIAL_RANKS ranks. A rank's 60-row slab halves to 30 and then 15 rows,
+# which cannot be pooled: level 2 is gathered whole
+# (models/layers.py::gather_level). Its encoder convs run on 15 + 2 rows,
+# every coarser layer and its decoder level on the whole level on every
+# rank, the finer levels on their slabs plus the halo. Labelled
+# "halo-reshard", they stay out of the sums.
+RESHARD_VOLUME = (120, 128, 128)
+RESHARD_SLAB = RESHARD_VOLUME[0] // SPATIAL_RANKS
+RESHARD_LEVEL = next(level for level in range(3)
+                     if (RESHARD_SLAB >> level) % 2)
+
+
+def reshard_rows(level: int, whole: bool) -> int:
+    """Rows of a level of the reshard case: the whole level, or a rank's
+    slab plus one halo row a side."""
+    return (RESHARD_VOLUME[0] >> level if whole
+            else (RESHARD_SLAB >> level) + 2)
+
+
+HALO_CONV_SHAPES += [
+    (entry, f"halo-reshard {layer}", 1, reshard_rows(
+        int(layer[3]), int(layer[3]) > RESHARD_LEVEL or (
+            layer.startswith("dec") and int(layer[3]) == RESHARD_LEVEL)),
+     2 * h, 2 * w, ci, co)
+    for entry, layer, _, d, h, w, ci, co in CONV_SHAPES
+    if layer[:3] in SLICE_LAYERS]
+HALO_DEC_SHAPES += [
+    (f"halo-reshard {layer}", 1, reshard_rows(
+        int(layer[3]) + 1, int(layer[3]) >= RESHARD_LEVEL), 2 * h, 2 * w,
+     *rest)
     for layer, _, d, h, w, *rest in DEC_SHAPES if layer[:3] in SLICE_LAYERS]
 # the slice's blocks use relu; the extra shapes cover the other activations
 ACTIVATION = {"non-cubic": "none", "ragged": "leaky_relu",
@@ -2470,21 +2520,26 @@ def _spatial_rank(local_rank: int, world: int, ports: list,
         model.load_state_dict(torch.load(work / "weights.pt"))
         reference = torch.load(work / "reference.pt")
         volumes = [np.load(work / f"volume{i}.npy") for i in range(3)]
+        reshard = [np.load(work / "volume_reshard.npy")]
         sharded = make_sharded_predictor(SlidingWindowPredictor(
             model, config, config.image_shape,
             overlap=config.validation_patch_overlap), data_mesh)
         isensee = build_model(_isensee_config(), mesh.device)
         isensee.load_state_dict(torch.load(work / "isensee_weights.pt"))
-        for tag, predictor, forwards, tol in (
-                ("spatial", make_spatial_predictor(model, config, mesh), 1,
-                 PROB_TOL),
-                ("sharded", sharded, len(sharded.share), PROB_TOL),
+        for tag, predictor, vols, forwards, tol in (
+                ("spatial", make_spatial_predictor(model, config, mesh),
+                 volumes, 1, PROB_TOL),
+                ("sharded", sharded, volumes, len(sharded.share), PROB_TOL),
                 ("isensee", make_spatial_predictor(
-                    isensee, _isensee_config(), mesh), 1, NORM_PROB_TOL)):
+                    isensee, _isensee_config(), mesh), volumes, 1,
+                 NORM_PROB_TOL),
+                # slabs of 60 rows go odd at level 2: gathered whole there
+                ("reshard", make_spatial_predictor(model, config, mesh),
+                 reshard, 1, PROB_TOL)):
             t0 = time.perf_counter()
             probs, launches = _counted(torch, lambda: [
-                predictor.predict_probabilities(v) for v in volumes])
-            seconds = (time.perf_counter() - t0) / len(volumes)
+                predictor.predict_probabilities(v) for v in vols])
+            seconds = (time.perf_counter() - t0) / len(vols)
             diff = flips = far = diff_fp32 = 0
             for i, (p, q) in enumerate(zip(probs, reference[tag])):
                 p = p.cpu()
@@ -2495,9 +2550,11 @@ def _spatial_rank(local_rank: int, world: int, ports: list,
                 flipped = (p > 0.5) != (q > 0.5)
                 flips += int(flipped.sum())
                 far += int((flipped & ((q - 0.5).abs() >= tol)).sum())
-            result[tag] = dict(launches=launches, forwards=forwards * 3,
-                               diff=diff, flips=flips, far_flips=far,
-                               seconds=seconds, tol=tol, diff_fp32=diff_fp32)
+            result[tag] = dict(launches=launches,
+                               forwards=forwards * len(vols), diff=diff,
+                               flips=flips, far_flips=far, seconds=seconds,
+                               tol=tol, diff_fp32=diff_fp32,
+                               cases=len(vols), shape=vols[0].shape[1:])
             if tag == "spatial":
                 result["spatial_peak"] = _peak_bytes(
                     torch, lambda: predictor.predict_probabilities(
@@ -2616,6 +2673,11 @@ def spatial_phase(torch, work: Path, smi: str) -> dict:
     for i, path in enumerate(inputs[:3]):
         volumes.append(preprocess_case(path, config)[0])
         np.save(work / f"volume{i}.npy", volumes[-1])
+    # the reshard case: the middle 120 rows of the first volume
+    cut = (volumes[0].shape[1] - RESHARD_VOLUME[0]) // 2
+    reshard = np.ascontiguousarray(
+        volumes[0][:, cut:cut + RESHARD_VOLUME[0]])
+    np.save(work / "volume_reshard.npy", reshard)
 
     # 1. one device: the references and the peaks
     model = build_model(config, "cuda")
@@ -2639,6 +2701,7 @@ def spatial_phase(torch, work: Path, smi: str) -> dict:
     reference = {tag: [p.predict_probabilities(v).cpu() for v in volumes]
                  for tag, p in (("spatial", direct), ("sharded", sliding),
                                 *isensee.items())}
+    reference["reshard"] = [direct.predict_probabilities(reshard).cpu()]
     torch.backends.cudnn.allow_tf32 = True
     torch.save(reference, work / "reference.pt")
     isensee_to_fp32 = max(
@@ -2714,14 +2777,16 @@ def spatial_phase(torch, work: Path, smi: str) -> dict:
     for r, result in enumerate(ranks):
         backend = result["backend"]
         for tag, per in (("spatial", PER_FORWARD), ("sharded", PER_FORWARD),
-                         ("isensee", ISENSEE_PER_FORWARD)):
+                         ("isensee", ISENSEE_PER_FORWARD),
+                         ("reshard", PER_FORWARD)):
             got = result[tag]
             want = {k: n * got["forwards"] for k, n in per.items()}
             launches[f"{tag} predictor, rank {r} ({backend})"] = got[
                 "launches"]
             print(f"spatial {tag} predictor, rank {r} of {SPATIAL_RANKS} "
-                  f"over {backend}: 3 cases of {tuple(config.image_shape)} "
-                  f"against one device: max|p - p_one| {got['diff']:.6g} "
+                  f"over {backend}: {got['cases']} case(s) of "
+                  f"{tuple(got['shape'])} against one device: max|p - "
+                  f"p_one| {got['diff']:.6g} "
                   f"<= tol {got['tol']}, label flips {got['flips']}, "
                   f"{got['far_flips']} with |p - 0.5| >= tol; "
                   f"{got['seconds']:.4f} s per case (ranks share the card); "
@@ -2822,6 +2887,327 @@ def spatial_phase(torch, work: Path, smi: str) -> dict:
     return launches
 
 
+INTEROP_CASE_REPEATS = 5
+
+
+def keras_stand_in(config):
+    """A minimal stand-in for the reference Keras model of ``config`` (the
+    card's machine has no Keras): its weight-bearing layers in Keras's
+    order, each with the class name the mappings read (``Conv3D``,
+    ``Conv3DTranspose``, ``GroupNormalization``), a ``name``, and
+    ``get_weights`` / ``set_weights`` over zero arrays in Keras's layouts."""
+    import types
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch.utils.keras_import import (
+        _isensee_param_order, _unet_param_order)
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        flax_param_shapes, unflatten)
+
+    class Layer:
+        def __init__(self, name, weights):
+            self.name, self._weights = name, weights
+
+        def get_weights(self):
+            return [w.copy() for w in self._weights]
+
+        def set_weights(self, weights):
+            if [np.shape(w) for w in weights] != [
+                    w.shape for w in self._weights]:
+                raise ValueError(f"{self.name}: weights shaped "
+                                 f"{[np.shape(w) for w in weights]}")
+            self._weights = [np.array(w, np.float32) for w in weights]
+
+    kinds = {k: type(k, (Layer,), {}) for k in (
+        "Conv3D", "Conv3DTranspose", "GroupNormalization")}
+    tree = unflatten({k: np.zeros(shape, np.float32) for k, shape in
+                      flax_param_shapes(config).items()
+                      if not k.startswith("batch_stats/")})
+    layers = []
+
+    def add(kind, name, *arrays):
+        layers.append(kinds[kind](name, [np.zeros_like(a) for a in arrays]))
+
+    if config.model_name == "isensee":
+        blocks, heads = _isensee_param_order(tree)
+        for name in blocks:
+            add("Conv3D", name, *tree[name]["conv"].values())
+            add("GroupNormalization", f"{name}_norm",
+                *tree[name]["in"].values())
+        for name in heads:
+            add("Conv3D", name, *tree[name].values())
+    else:
+        for name in _unet_param_order(tree):
+            sub = tree[name]
+            if "deconv" in sub:  # Keras keeps (k, k, k, out, in)
+                add("Conv3DTranspose", name,
+                    sub["deconv"]["kernel"].transpose(0, 1, 2, 4, 3),
+                    sub["deconv"]["bias"])
+            else:
+                add("Conv3D", name, *(sub if "kernel" in sub
+                                      else sub["conv"]).values())
+    return types.SimpleNamespace(layers=layers)
+
+
+LOAD_ARTIFACTS = r"""
+import json, sys, time
+import numpy as np
+import torch
+from fetal_mri_segmentation_tpu_torch.utils.export import load_predictor
+
+work = sys.argv[1]
+volumes = [np.load(f"{work}/volume{i}.npy") for i in range(3)]
+out, labels = {}, {}
+for name in json.loads(sys.argv[2]):
+    t0 = time.perf_counter()
+    predict = load_predictor(f"{work}/{name}.fetal", device="cuda")
+    load_s = time.perf_counter() - t0
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3, dec0
+    counters = (conv3x3.conv3x3, conv3x3.conv3x3_flat,
+                dec0.up_concat_conv3x3_kernel)
+    for fn in counters:
+        fn.launches = 0
+    for i, vol in enumerate(volumes):
+        labels[f"{name}/{i}"] = predict(vol)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    vol = torch.from_numpy(volumes[0]).cuda()
+    with torch.no_grad():
+        predict.program(vol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(%d):
+            predict.program(vol)
+        torch.cuda.synchronize()
+    out[name] = dict(launches=launches, load_s=load_s,
+                     case_s=(time.perf_counter() - t0) / %d,
+                     meta=predict.meta)
+np.savez(f"{work}/labels.npz", **labels)
+out["model_modules"] = sorted(m for m in sys.modules if m.startswith(
+    ("fetal_mri_segmentation_tpu_torch.models",
+     "fetal_mri_segmentation_tpu_torch.inference")))
+with open(f"{work}/loaded.json", "w") as f:
+    json.dump(out, f)
+""" % (INTEROP_CASE_REPEATS, INTEROP_CASE_REPEATS)
+
+
+def interop_phase(torch, work: Path) -> dict:
+    """Keras interop and the portable program at full width
+    (``configs/fetal_unet.json`` and ``configs/fetal_isensee.json``, both
+    kernel switches on, weights from a seed): each model through
+    ``keras_export`` into a Keras stand-in and ``keras_import`` back, bit
+    for bit; the three cases served by the imported U-Net with the kernels
+    (labels equal the original's); ``export_predictor`` with ``["cuda"]``
+    and the default platforms, sliding window and direct, and
+    ``predict.main --export``, each artifact loaded in a fresh process on
+    the card: the ``["cuda"]`` programs' labels against the live
+    kernels-on predictors and the portable ones' against kernels off
+    (within ``PROB_TOL`` / ``NORM_PROB_TOL``, no flip away from 0.5), their
+    launches exactly the live path's per forward; the host time of a
+    launch through the custom op and without it."""
+    import dataclasses
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch import predict as entry
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.inference.predict import (
+        preprocess_case)
+    from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
+        SlidingWindowPredictor)
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
+    from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+        make_direct_predictor)
+    from fetal_mri_segmentation_tpu_torch.utils.export import (
+        export_predictor)
+    from fetal_mri_segmentation_tpu_torch.utils.keras_export import (
+        export_keras_isensee_weights, export_keras_unet_weights)
+    from fetal_mri_segmentation_tpu_torch.utils.keras_import import (
+        keras_state_dict, keras_weight_list_from_model)
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like, to_flax)
+
+    config = dataclasses.replace(
+        Config.load(str(ROOT / "configs" / "fetal_unet.json")),
+        use_pallas_conv=True, use_pallas_dec0=True)
+    config_off = dataclasses.replace(config, use_pallas_conv=False,
+                                     use_pallas_dec0=False)
+    isensee_cfg = _isensee_config()
+
+    # 1. the Keras mapping on both families, through the stand-in
+    models = {}
+    for tag, cfg, exporter in (("unet", config, export_keras_unet_weights),
+                               ("isensee", isensee_cfg,
+                                export_keras_isensee_weights)):
+        original = build_model(cfg, "cuda")
+        original.load_state_dict(from_flax(init_flax_like(cfg, seed=0)))
+        stand_in = keras_stand_in(cfg)
+        t0 = time.perf_counter()
+        exporter(original, stand_in)
+        weights = keras_weight_list_from_model(stand_in)
+        imported = build_model(cfg, "cuda")
+        imported.load_state_dict(keras_state_dict(cfg, weights))
+        seconds = time.perf_counter() - t0
+        state = original.state_dict()
+        differ = [k for k, v in imported.state_dict().items()
+                  if not torch.equal(v, state[k])]
+        print(f"interop keras {tag}: {len(weights)} weight layers out and "
+              f"back in {seconds:.4f} s; {len(state)} tensors, "
+              f"{len(differ)} differ", flush=True)
+        if differ:
+            raise AssertionError(f"keras round trip {tag}: {differ}")
+        models[tag] = (original, imported)
+
+    # 2. the imported U-Net serves the three cases with the kernels
+    inputs = write_cases(work / "cases")
+    volumes = [preprocess_case(path, config)[0] for path in inputs]
+    for i, vol in enumerate(volumes):
+        np.save(work / f"volume{i}.npy", vol)
+    original, imported = models["unet"]
+    served = {}
+    for tag, model in (("original", original), ("imported", imported)):
+        predictor = SlidingWindowPredictor(
+            model, config, config.image_shape,
+            overlap=config.validation_patch_overlap, patch_batch_size=27)
+        served[tag], launches = _counted(torch, lambda: [
+            predictor.predict_labels(v) for v in volumes])
+    want = {k: n * len(volumes) for k, n in PER_FORWARD.items()}
+    same = all(np.array_equal(a, b) for a, b in zip(*served.values()))
+    print(f"interop: the Keras-imported U-Net on {len(volumes)} cases: "
+          f"labels equal the original's: {same}; launches {launches} "
+          f"(one batch of 27 patches per case)", flush=True)
+    if not same or launches != want:
+        raise AssertionError(f"imported serving: {same}, {launches}")
+
+    # 3. the live references, and the artifacts
+    off = build_model(config_off, "cuda")
+    off.load_state_dict(imported.state_dict())
+    refs = {}
+    for tag, cfg, model in (("on", config, imported),
+                            ("off", config_off, off),
+                            ("isensee", isensee_cfg, models["isensee"][1])):
+        refs[f"{tag} sliding"] = SlidingWindowPredictor(
+            model, cfg, cfg.image_shape, overlap=cfg.validation_patch_overlap,
+            patch_batch_size=27)
+        if tag != "isensee":
+            refs[f"{tag} direct"] = make_direct_predictor(model, cfg)
+    probs = {k: [p.predict_probabilities(v)[0].cpu() for v in volumes]
+             for k, p in refs.items()}
+    case_s = {}
+    for key in ("on sliding", "off sliding"):
+        refs[key].predict_labels(volumes[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(INTEROP_CASE_REPEATS):
+            refs[key].predict_labels(volumes[0])
+        torch.cuda.synchronize()
+        case_s[key] = (time.perf_counter() - t0) / INTEROP_CASE_REPEATS
+    # artifact -> (reference, tolerance, launches per forward, forwards
+    # per case)
+    artifacts = {
+        "cuda_sliding": ("on sliding", PROB_TOL, PER_FORWARD, 1),
+        "cuda_direct": ("on direct", PROB_TOL, PER_FORWARD, 1),
+        "portable_sliding": ("off sliding", PROB_TOL, None, 0),
+        "portable_direct": ("off direct", PROB_TOL, None, 0),
+        "predict_main": ("off sliding", PROB_TOL, None, 0),
+        "isensee_cuda_sliding": ("isensee sliding", NORM_PROB_TOL,
+                                 ISENSEE_PER_FORWARD, 1)}
+    export_s = {}
+    for name in artifacts:
+        t0 = time.perf_counter()
+        path = str(work / f"{name}.fetal")
+        if name == "predict_main":
+            params = work / "params.npz"
+            np.savez(params, **to_flax(imported.state_dict()))
+            entry.main(config, str(params), export_path=path,
+                       patch_batch_size=27, device="cuda", verbose=False)
+        else:
+            cuda = name.startswith(("cuda", "isensee"))
+            cfg = isensee_cfg if name.startswith("isensee") else config
+            model = (models["isensee"][1] if name.startswith("isensee")
+                     else imported)
+            export_predictor(model, cfg, cfg.image_shape, path,
+                             overlap=cfg.validation_patch_overlap,
+                             patch_batch_size=27, direct="direct" in name,
+                             platforms=["cuda"] if cuda else None)
+        export_s[name] = time.perf_counter() - t0
+    del refs, off
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", LOAD_ARTIFACTS, str(work),
+         json.dumps(list(artifacts))], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    load_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"loading the artifacts failed:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    loaded = json.loads((work / "loaded.json").read_text())
+    if loaded.pop("model_modules"):
+        raise AssertionError("the loader imported the port's model modules")
+    labels = np.load(work / "labels.npz")
+    launches = {}
+    for name, (ref, tol, per, forwards) in artifacts.items():
+        got = loaded[name]
+        flips = far = 0
+        for i, p in enumerate(probs[ref]):
+            p = p.numpy()
+            flipped = labels[f"{name}/{i}"] != (p > 0.5)
+            flips += int(flipped.sum())
+            far += int((flipped & (np.abs(p - 0.5) >= tol)).sum())
+        want = {k: (n * forwards * len(volumes) if per else 0)
+                for k, n in (per or PER_FORWARD).items()}
+        launches[name] = got["launches"]
+        size = os.path.getsize(work / f"{name}.fetal")
+        print(f"interop artifact {name} ({got['meta']['platforms']}, "
+              f"{size} bytes, exported in {export_s[name]:.4f} s, loaded in "
+              f"{got['load_s']:.4f} s): against {ref}: label flips {flips}, "
+              f"{far} with |p - 0.5| >= {tol}; {got['case_s']:.6f} s per "
+              f"case; launches {got['launches']} (want {want})", flush=True)
+        if far or got["launches"] != want:
+            raise AssertionError(f"artifact {name}: {far} far flips, "
+                                 f"launches {got['launches']}")
+    print(f"interop: a 128^3 case through the live sliding window "
+          f"{case_s['on sliding']:.6f} s with the kernels, "
+          f"{case_s['off sliding']:.6f} s without (batches of 27); the "
+          f"artifacts' fresh process {load_s:.4f} s", flush=True)
+
+    # 4. the host time of one launch: the public wrapper (autograd
+    # Function, custom op, ctypes), the custom op alone, the ctypes launch
+    # alone, on a shape whose device time is small
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, 8, 8, 8, 64, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    w = (torch.randn(3, 3, 3, 64, 64, device="cuda", generator=gen)
+         * 0.03).to(torch.bfloat16)
+    b = torch.zeros(64, device="cuda")
+    host_us = {}
+    for tag, fn in (
+            ("wrapper", lambda: conv_ops.conv3x3_flat(x, w, b, "relu")),
+            ("custom op", lambda: torch.ops.fetal.conv3x3(
+                x, w, b, "relu", 0.3, "conv3x3_flat")),
+            ("ctypes launch", lambda: conv_ops._launch(
+                "conv3x3_flat", x, w, b, "relu", 0.3))):
+        with torch.inference_mode():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            host = (time.perf_counter() - t0) / 500
+            torch.cuda.synchronize()
+        host_us[tag] = host * 1e6
+    device_ms = time_ms(torch, lambda: conv_ops._launch(
+        "conv3x3_flat", x, w, b, "relu", 0.3), iters=50)
+    print("interop host time per launch (1 x 8^3 x 64 -> 64, device "
+          f"{device_ms * 1e3:.2f} us): " + ", ".join(
+              f"{k} {v:.2f} us" for k, v in host_us.items()), flush=True)
+    return launches
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -2868,14 +3254,15 @@ def main() -> None:
                         ("scale", lambda t, w: scale_phase(
                             t, w, smi.splitlines()[0])),
                         ("spatial", lambda t, w: spatial_phase(
-                            t, w, smi.splitlines()[0]))):
+                            t, w, smi.splitlines()[0])),
+                        ("interop", interop_phase)):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as work:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
     (launches, train_launches, serve_launches, isensee, experiment,
-     scale, spatial) = results.values()
+     scale, spatial, interop) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -2895,6 +3282,8 @@ def main() -> None:
                                    in scale.items()},
                 "spatial_launches": {path: counts[name] for path, counts
                                      in spatial.items()},
+                "export_launches": {path: counts[name] for path, counts
+                                    in interop.items()},
                 "halo_forward": halo_stats[name],
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]

@@ -34,8 +34,8 @@ absent the error names the converter::
 
 rewrites an HDF5 dataset into the native layout (run it where h5py is
 installed). A blosc-compressed dataset (the PyTables reference format) is
-refused: ``tools/convert_reference_h5.py`` of the JAX package rewrites it
-into plain HDF5 first.
+read through ``data/blosc_compat.py`` where libblosc is installed, and
+refused, with the converter named, where it is not.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from fetal_mri_segmentation_tpu_torch.data import blosc_compat
 from fetal_mri_segmentation_tpu_torch.data.normalize import (
     normalize_data_storage, normalize_data_storage_per_volume,
     normalize_data_storage_windowed)
@@ -60,9 +61,6 @@ from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti
 FORMAT_VERSION = 1
 _ARRAYS = ("data", "truth", "affine")
 _META = "meta.json"
-# HDF5 registered filter id of blosc (PyTables' default compressor)
-_BLOSC_FILTER_ID = 32001
-
 _NO_H5PY = (
     "{path} is a file, so it is read as the JAX package's HDF5 dataset, and "
     "that needs h5py, which is not installed here. Convert it where h5py "
@@ -163,30 +161,36 @@ def _import_h5py(path: str):
     return h5py
 
 
+def _readable(path: str, name: str, dset):
+    """``dset``, or a chunk-decompressing view of it where it is
+    blosc-compressed and the HDF5 blosc filter is not registered (the JAX
+    package's ``data/build.py::_Root`` does the same)."""
+    if not blosc_compat.is_unreadable_blosc(dset):
+        return dset
+    if not blosc_compat.blosc_available():
+        raise RuntimeError(
+            f"{path}:{name} is blosc-compressed (the PyTables reference "
+            "format) and neither the HDF5 blosc filter nor libblosc is "
+            "available: convert the file with python -m "
+            "fetal_mri_segmentation_tpu_torch.data.build --convert IN.h5 "
+            "OUT_DIR on a machine that has libblosc")
+    return blosc_compat.BloscDataset(dset)
+
+
 def _open_hdf5(path: str, readwrite: str) -> DataFile:
     h5py = _import_h5py(path)
     h5 = h5py.File(path, readwrite)
     try:
-        for name in _ARRAYS:
-            plist = h5[name].id.get_create_plist()
-            if _BLOSC_FILTER_ID in {plist.get_filter(i)[0] for i in
-                                    range(plist.get_nfilters())}:
-                raise RuntimeError(
-                    f"{path}:{name} is blosc-compressed (the PyTables "
-                    "reference format), which the port does not read: "
-                    "rewrite the file with tools/convert_reference_h5.py "
-                    "(where libblosc is installed), then convert the result "
-                    "with python -m fetal_mri_segmentation_tpu_torch.data."
-                    "build --convert")
-        arrays = {name: h5[name] for name in _ARRAYS}
+        arrays = {name: _readable(path, name, h5[name]) for name in _ARRAYS}
         meta = {"subject_ids": None,
                 "normalization": h5.attrs.get("normalization"),
                 "norm_mean": None, "norm_std": None}
         if "subject_ids" in h5:
-            arrays["subject_ids"] = h5["subject_ids"]
+            arrays["subject_ids"] = _readable(path, "subject_ids",
+                                              h5["subject_ids"])
             meta["subject_ids"] = [
                 s.decode() if isinstance(s, bytes) else str(s)
-                for s in h5["subject_ids"][:]]
+                for s in arrays["subject_ids"][:]]
         if "norm_mean" in h5.attrs:
             meta["norm_mean"] = np.asarray(h5.attrs["norm_mean"]).tolist()
             meta["norm_std"] = np.asarray(h5.attrs["norm_std"]).tolist()

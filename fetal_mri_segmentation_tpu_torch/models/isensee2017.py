@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from fetal_mri_segmentation_tpu_torch.models.layers import (
-    ConvBlock, check_slab_depth, draw_dropout_masks, head_activation,
+    ConvBlock, LevelSharding, draw_dropout_masks, head_activation,
     spatial_dropout_3d, upsample_nearest)
 from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import conv3d_ndhwc
 
@@ -41,8 +41,9 @@ class Isensee2017(nn.Module):
     dropout's keep-masks: ``dropout_masks`` (one (B, f_L) bool tensor per
     level, :meth:`dropout_masks`) or a ``generator`` to draw them from.
     With a ``spatial_group`` (``layers.py::set_spatial_group``) x is one
-    depth slab of the volume, a multiple of 2^(depth-1) rows deep, and the
-    masks must be the same on every rank of the group."""
+    depth slab of the volume (from the first level whose slab is odd,
+    ``layers.py::gather_level``, the levels run whole on every rank), and
+    the masks must be the same on every rank of the group."""
 
     def __init__(self, in_channels: int = 1, n_labels: int = 1,
                  depth: int = 5, n_base_filters: int = 16,
@@ -104,8 +105,7 @@ class Isensee2017(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 dropout_masks: Optional[List[torch.Tensor]] = None
                 ) -> torch.Tensor:
-        if self.spatial_group is not None:
-            check_slab_depth(x.shape[1], self.depth - 1)
+        shard = LevelSharding(self.spatial_group, x.shape[1], self.depth - 1)
         drop = self.training and self.dropout_rate > 0
         if drop and dropout_masks is None:
             if generator is None:
@@ -117,25 +117,28 @@ class Isensee2017(nn.Module):
         x = x.to(self.dtype)
         level_outputs = []
         for level in range(self.depth):
-            in_conv = self._modules[f"enc{level}_in"](x)
-            h = self._modules[f"enc{level}_ctx1"](in_conv)
+            whole = shard.whole(level)
+            in_conv = self._modules[f"enc{level}_in"](x, whole=whole)
+            h = self._modules[f"enc{level}_ctx1"](in_conv, whole=whole)
             if drop:
                 h = spatial_dropout_3d(h, dropout_masks[level],
                                        self.dropout_rate)
-            h = self._modules[f"enc{level}_ctx2"](h)
-            x = in_conv + h
+            h = self._modules[f"enc{level}_ctx2"](h, whole=whole)
+            x = shard.gather(in_conv + h, level)
             level_outputs.append(x)
 
         segmentation = []
         for level in range(self.depth - 2, -1, -1):
+            whole = shard.whole(level, decoder=True)
             up = self._modules[f"dec{level}_up"]
             if self.training:
-                x = up(upsample_nearest(x, (2, 2, 2)))
+                x = up(upsample_nearest(x, (2, 2, 2)), whole=whole)
             else:
-                x = up((x, None))
+                x = up((x, None), whole=whole)
             x = torch.cat([level_outputs[level], x], -1)
-            x = self._modules[f"dec{level}_loc1"](x)
-            x = self._modules[f"dec{level}_loc2"](x)
+            x = self._modules[f"dec{level}_loc1"](x, whole=whole)
+            x = self._modules[f"dec{level}_loc2"](x, whole=whole)
+            x = shard.cut(x, level)
             if level < self.n_segmentation_levels:
                 head = self._modules[f"seg{level}"]
                 segmentation.insert(0, conv3d_ndhwc(x.float(), head.weight,
@@ -144,7 +147,8 @@ class Isensee2017(nn.Module):
         out = None
         for level in reversed(range(self.n_segmentation_levels)):
             seg = segmentation[level]
-            out = seg if out is None else out + seg
+            # the sum of the heads above a gathered level is whole there
+            out = seg if out is None else shard.cut(out, level) + seg
             if level > 0:
                 out = upsample_nearest(out, (2, 2, 2))
         return out if logits else head_activation(out, self.activation_name)

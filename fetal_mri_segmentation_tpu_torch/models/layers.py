@@ -19,8 +19,12 @@ ranks that share a volume's depth, one slab each. A block then runs each 3^3
 conv on its slab extended by its neighbours' rows (``parallel/
 collectives.py::halo_exchange``) and an InstanceNorm takes its moments over
 the whole volume. Max pooling, nearest upsampling, the transposed conv and
-the 1^3 convs need no halo while every slab stays even at every level
-(:func:`check_slab_depth`).
+the 1^3 convs need no halo while a slab stays even. At the first level
+whose slab rows are odd (:func:`gather_level`) the models gather that level
+whole on every rank, run the coarser levels on it identically, with no halo
+and local norm statistics (the blocks' ``whole`` argument), and each rank
+keeps its own rows of that level's decoder output: what XLA's resharding
+does for the JAX package.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from fetal_mri_segmentation_tpu_torch.ops.cuda_lib import cached
 from fetal_mri_segmentation_tpu_torch.ops.dec0 import (
     dec0_available, up_concat_conv3x3, up_concat_conv3x3_kernel)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
-    all_reduce_sum_grad, halo_exchange)
+    all_gather_cat, all_reduce_sum_grad, halo_exchange, own_rows)
 
 
 class InstanceNorm(nn.Module):
@@ -52,7 +56,8 @@ class InstanceNorm(nn.Module):
     of x and x^2 and the count are summed over the ranks with a
     differentiable all-reduce, so the moments are the whole volume's, as
     ``BatchNorm.group`` does for the batch (variance E[x^2] - E[x]^2,
-    clipped at 0)."""
+    clipped at 0). ``whole``: x is a level every rank holds whole, and the
+    moments are x's own."""
 
     epsilon = 1e-3
 
@@ -64,9 +69,9 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, whole: bool = False) -> torch.Tensor:
         xf = x.float()
-        if self.group is None:
+        if self.group is None or whole:
             mean = xf.mean(dim=(1, 2, 3), keepdim=True)
             var = xf.var(dim=(1, 2, 3), correction=0, keepdim=True)
         else:
@@ -100,7 +105,10 @@ class BatchNorm(nn.Module):
     all-reduce, so the moments are the GLOBAL batch's, equal to the
     single-device step's on the same global batch, and the running buffers
     agree on every rank with no second reduction. ``nn.SyncBatchNorm`` is
-    not this either (unbiased running variance, another momentum)."""
+    not this either (unbiased running variance, another momentum).
+    ``whole_group``: the group for a level that every rank of a depth-sharded
+    mesh holds whole (``whole``), the ranks that hold other samples, so that
+    no voxel counts twice (None: this rank's batch alone)."""
 
     momentum, epsilon = 0.99, 1e-3
 
@@ -109,16 +117,18 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.group = group
+        self.whole_group = None
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, whole: bool = False) -> torch.Tensor:
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            if self.group is None:
+            group = self.whole_group if whole else self.group
+            if group is None:
                 mean = xf.mean(dim=dims)
                 mean_sq = (xf * xf).mean(dim=dims)
             else:
@@ -126,7 +136,7 @@ class BatchNorm(nn.Module):
                                         xf.numel() // xf.shape[-1])
                 sums = all_reduce_sum_grad(torch.cat(
                     [xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]),
-                    self.group)
+                    group)
                 mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
             var = (mean_sq - mean * mean).clamp(min=0.0)
             with torch.no_grad():
@@ -181,7 +191,9 @@ class ConvBlock(nn.Module):
     zero row in D; the fused decoder takes one coarse row of each neighbour
     and two skip rows of each, which keeps the skip exactly twice the coarse
     grid, and crops two fine rows at each end. A rank with no neighbour on a
-    side gets zeros there, the whole volume's SAME padding.
+    side gets zeros there, the whole volume's SAME padding. ``whole`` (the
+    ``forward`` argument): x is a level that every rank holds whole, so no
+    halo is exchanged and the norm's statistics are x's own.
     """
 
     def __init__(self, in_features: int, features: int, *,
@@ -221,12 +233,12 @@ class ConvBlock(nn.Module):
         """The activation fused into a kernel: none where a norm follows."""
         return "none" if self.norm_key else self.activation
 
-    def _epilogue(self, y: torch.Tensor,
-                  activated: bool = False) -> torch.Tensor:
+    def _epilogue(self, y: torch.Tensor, activated: bool = False,
+                  whole: bool = False) -> torch.Tensor:
         """The norm and the activation after any conv route; ``activated``:
         the kernel already applied the activation (no norm)."""
         if self.norm_key:
-            y = self._modules[self.norm_key](y)
+            y = self._modules[self.norm_key](y, whole=whole)
         if activated:
             return y
         return apply_activation(y, self.activation, self.negative_slope)
@@ -248,11 +260,12 @@ class ConvBlock(nn.Module):
         return cached(weight, ("dhwio", self.dtype),
                       lambda w: dhwio(w.detach()))
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x, whole: bool = False) -> torch.Tensor:
         if isinstance(x, (tuple, list)):
-            return self._fused_decoder(*x)
+            return self._fused_decoder(*x, whole=whole)
         ci = x.shape[-1]
-        group = self.spatial_group if self.kernel_size == 3 else None
+        group = (self.spatial_group if self.kernel_size == 3 and not whole
+                 else None)
         if group is not None:
             x = halo_exchange(x, group, 1 if self.stride == 1 else 0, 1)
         if (self.use_kernel_conv and self.kernel_size == 3
@@ -263,9 +276,11 @@ class ConvBlock(nn.Module):
                    self.negative_slope)
             if group is not None:
                 y = y[:, 1:-1]
-            return self._epilogue(y, activated=not self.norm_key)
+            return self._epilogue(y, activated=not self.norm_key,
+                                  whole=whole)
         return self._epilogue(self._plain_conv(x.to(self.dtype),
-                                               halo=group is not None))
+                                               halo=group is not None),
+                              whole=whole)
 
     def _plain_conv(self, x: torch.Tensor, halo: bool = False) -> torch.Tensor:
         """SAME conv + bias in the compute dtype (flax ``nn.Conv``): where
@@ -286,10 +301,11 @@ class ConvBlock(nn.Module):
                             stride=self.stride)
 
     def _fused_decoder(self, x_deep: torch.Tensor,
-                       skip: Optional[torch.Tensor]) -> torch.Tensor:
+                       skip: Optional[torch.Tensor],
+                       whole: bool = False) -> torch.Tensor:
         kernel = self._kernel_dhwio()
         x_deep = x_deep.to(self.dtype)
-        group = self.spatial_group
+        group = None if whole else self.spatial_group
         if group is not None:
             x_deep = halo_exchange(x_deep, group, 1, 1)
             if skip is not None:
@@ -310,7 +326,7 @@ class ConvBlock(nn.Module):
                 self.conv.bias)
         if group is not None:
             y = y[:, 2:-2]
-        return self._epilogue(y, activated=activated)
+        return self._epilogue(y, activated=activated, whole=whole)
 
 
 class UpConv(nn.Module):
@@ -411,16 +427,47 @@ def set_spatial_group(model: nn.Module, group) -> None:
             m.group = group
 
 
-def check_slab_depth(rows: int, levels: int) -> None:
-    """The port's guard for a depth-sharded forward: a slab of ``rows``
-    rows must stay even at each of the model's ``levels`` halvings, so that
-    pooling, strided convs and upsampling need no halo. (XLA reshards such
-    a slab instead; ROADMAP.md queue 3, the slab-depth guard.)"""
-    need = 2 ** levels
-    if rows % need:
-        raise ValueError(
-            f"a depth slab of {rows} rows per spatial rank is not a multiple "
-            f"of 2^{levels}={need}: every slab must stay even at each of the "
-            f"model's {levels} halvings — give each rank a multiple of "
-            f"{need} rows (volume depth = spatial ranks x {need} x k), or "
-            "fewer spatial ranks (ROADMAP.md queue 3, the slab-depth guard)")
+def gather_level(rows: int, levels: int) -> Optional[int]:
+    """The level a depth-sharded forward gathers whole: the first of the
+    model's ``levels`` halvings (0 = full resolution) at which a slab of
+    ``rows`` rows has an odd number of rows and so cannot be pooled, or
+    None where every slab stays even. The JAX package asks only that the
+    volume's dims survive the halvings and its depth split over the ranks
+    (``parallel/spatial.py::SpatialPredictor._check_shape``); a level past
+    this one is halved whole, as XLA reshards it."""
+    for level in range(levels):
+        if rows % 2:
+            return level
+        rows //= 2
+    return None
+
+
+class LevelSharding:
+    """How one depth-sharded forward runs its levels: sharded over
+    ``group`` up to the encoder output of level ``level``, which is
+    gathered whole (:func:`gather`), every coarser level whole on every
+    rank, and this rank's rows taken back (:func:`cut`) from the decoder
+    output of ``level``. ``level`` None (or no group): nothing is gathered.
+    """
+
+    def __init__(self, group, rows: int, levels: int):
+        self.group = group
+        self.level = (None if group is None
+                      else gather_level(rows, levels))
+
+    def whole(self, level: int, decoder: bool = False) -> bool:
+        """Whether ``level``'s encoder (or ``decoder``) blocks see whole
+        tensors: the gathered level runs its encoder blocks sharded and its
+        decoder blocks whole."""
+        g = self.level
+        return g is not None and (level > g or (decoder and level == g))
+
+    def gather(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        if level != self.level:
+            return x
+        return all_gather_cat(x, self.group)
+
+    def cut(self, x: torch.Tensor, level: int) -> torch.Tensor:
+        if level != self.level:
+            return x
+        return own_rows(x, self.group)

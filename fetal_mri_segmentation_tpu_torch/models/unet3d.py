@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from fetal_mri_segmentation_tpu_torch.models.layers import (
-    ConvBlock, UpConv, check_slab_depth, head_activation, max_pool_3d)
+    ConvBlock, LevelSharding, UpConv, head_activation, max_pool_3d)
 from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import conv3d_ndhwc
 
 
@@ -30,7 +30,8 @@ class UNet3D(nn.Module):
     running ones in eval; ``bn_group`` (a process group) makes them the
     global batch's under data parallelism (``layers.py::BatchNorm``).
     With a ``spatial_group`` (``layers.py::set_spatial_group``) x is one
-    depth slab of the volume, a multiple of 2^(depth-1) rows deep."""
+    depth slab of the volume; from the first level whose slab is odd
+    (``layers.py::gather_level``) the levels run whole on every rank."""
 
     def __init__(self, in_channels: int = 1, n_labels: int = 1,
                  depth: int = 4, n_base_filters: int = 32,
@@ -78,23 +79,26 @@ class UNet3D(nn.Module):
         self.head = nn.Conv3d(cin, n_labels, 1, device=device)
 
     def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
-        if self.spatial_group is not None:
-            check_slab_depth(x.shape[1], self.depth - 1)
+        shard = LevelSharding(self.spatial_group, x.shape[1], self.depth - 1)
         x = x.to(self.dtype)
         skips = []
         for level in range(self.depth):
-            x = getattr(self, f"enc{level}_conv1")(x)
-            x = getattr(self, f"enc{level}_conv2")(x)
+            whole = shard.whole(level)
+            x = getattr(self, f"enc{level}_conv1")(x, whole=whole)
+            x = getattr(self, f"enc{level}_conv2")(x, whole=whole)
             if level < self.depth - 1:
+                x = shard.gather(x, level)
                 skips.append(x)
                 x = max_pool_3d(x, self.pool_size)
         for level in range(self.depth - 2, -1, -1):
+            whole = shard.whole(level, decoder=True)
             skip = skips[level]
             if self.fuse:
-                x = getattr(self, f"dec{level}_conv1")((x, skip))
+                x = getattr(self, f"dec{level}_conv1")((x, skip), whole=whole)
             else:
                 x = torch.cat([getattr(self, f"dec{level}_up")(x), skip], -1)
-                x = getattr(self, f"dec{level}_conv1")(x)
-            x = getattr(self, f"dec{level}_conv2")(x)
+                x = getattr(self, f"dec{level}_conv1")(x, whole=whole)
+            x = getattr(self, f"dec{level}_conv2")(x, whole=whole)
+            x = shard.cut(x, level)
         y = conv3d_ndhwc(x.float(), self.head.weight, self.head.bias)
         return y if logits else head_activation(y, self.activation_name)

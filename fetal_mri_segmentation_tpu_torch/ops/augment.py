@@ -24,12 +24,13 @@ No kernel of the JAX package computes this, and none does here.
 
 from __future__ import annotations
 
-import functools
 import itertools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from fetal_mri_segmentation_tpu_torch.utils.device import device_table
 
 # ---------------------------------------------------------------------------
 # The 48-element cube-symmetry group (copies of the JAX package's table and
@@ -107,7 +108,7 @@ def _key_axes(key: tuple):
 _SYMMETRIES = tuple(_key_axes(k) for k in PERMUTATION_KEYS)
 
 
-@functools.cache
+@device_table
 def _symmetry_tables(device: torch.device):
     # kept per device; made outside inference mode, so a table first made
     # while serving is a normal tensor when training uses it

@@ -31,6 +31,15 @@ a ``torch.autograd.Function`` (:class:`_FusedConv`) whose backward is
 :func:`conv3x3_vjp`, the port of the JAX custom VJP
 (``pallas_conv.py::_bwd``, shared by ``conv3x3_flat``): plain fp32 ops that
 recompute the pre-activation and never launch the kernel.
+
+On a CUDA tensor the forward reaches the kernel through the custom op
+``torch.ops.fetal.conv3x3`` (:func:`conv3x3_op`), registered for CUDA
+only: its implementation is the ctypes launch with its host planning
+(weight repack, tile plan, tensor maps, the launch count), and its fake
+implementation gives the output's shape, dtype and strides, so that
+``torch.export`` can trace a model through the kernel and keep the op in
+the exported program (``utils/export.py``). The op reached with a CPU
+tensor raises; the entry points never send it one.
 """
 
 from __future__ import annotations
@@ -211,6 +220,26 @@ def conv3x3_vjp(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  for t, n in zip(inputs, needs))
 
 
+@torch.library.custom_op("fetal::conv3x3", mutates_args=(),
+                         device_types="cuda")
+def conv3x3_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               activation: str, negative_slope: float,
+               entry: str) -> torch.Tensor:
+    """One launch of ``conv3x3_kernel`` on CUDA tensors: x (B, D, H, W,
+    C_in) bf16, w DHWIO (3, 3, 3, C_in, C_out) bf16, bias (C_out,) fp32 ->
+    y (B, D, H, W, C_out) bf16, contiguous. ``entry`` names the public
+    entry point (``conv3x3`` or ``conv3x3_flat``) whose ``launches`` counts
+    it."""
+    y = _launch(entry, x, w, bias, activation, negative_slope)
+    _ENTRIES[entry].launches += 1
+    return y
+
+
+@conv3x3_op.register_fake
+def _conv3x3_fake(x, w, bias, activation, negative_slope, entry):
+    return x.new_empty((*x.shape[:4], w.shape[4]), dtype=torch.bfloat16)
+
+
 class _FusedConv(torch.autograd.Function):
     """One fused conv with its gradient: the kernel (or, on a CPU tensor,
     its plain version) forward, :func:`conv3x3_vjp` backward. ``entry`` is
@@ -222,9 +251,12 @@ class _FusedConv(torch.autograd.Function):
         ctx.act = (activation, negative_slope)
         if x.device.type == "cpu":
             return conv3x3_reference(x, w, bias, activation, negative_slope)
-        y = _launch(entry.__name__, x, w, bias, activation, negative_slope)
-        entry.launches += 1
-        return y
+        if x.device.type != "cuda" and not torch.compiler.is_compiling():
+            # a meta tensor reaches the op's fake implementation only in a
+            # trace; anywhere else the kernel refuses it
+            cuda_lib.require_cuda_bf16(entry.__name__, x=x)
+        return conv3x3_op(x, w, bias, activation, float(negative_slope),
+                          entry.__name__)
 
     @staticmethod
     def backward(ctx, g):
@@ -254,6 +286,7 @@ def conv3x3_flat(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 conv3x3.launches = 0
 conv3x3_flat.launches = 0
+_ENTRIES = {f.__name__: f for f in (conv3x3, conv3x3_flat)}
 
 
 def conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],

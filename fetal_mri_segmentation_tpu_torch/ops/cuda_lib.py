@@ -139,7 +139,11 @@ def cached(t: torch.Tensor, key, make):
     ``load_state_dict``, ``copy_``), a new storage or a move to another
     device. Writes through ``t.data`` bypass the version counter and are
     not seen. An inference tensor has no version counter and cannot be
-    changed outside inference mode; its first result stands."""
+    changed outside inference mode; its first result stands. While
+    ``torch.export`` traces, ``t`` is a fake tensor with no storage: the
+    result is made and not kept, as plain ops of the traced program."""
+    if torch.compiler.is_compiling():
+        return make(t)
     stamp = (None if t.is_inference() else t._version, t.data_ptr(),
              t.device, t.dtype)
     store = t.__dict__.setdefault("_fetal_prepared", {})

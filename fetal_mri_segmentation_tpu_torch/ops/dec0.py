@@ -23,7 +23,11 @@ two weights and the skip's 8 sub-parity views).
 :func:`up_concat_conv3x3_kernel` is differentiable on either device: its
 backward (:func:`up_concat_conv3x3_vjp`) is the port of the JAX custom VJP
 ``pallas_dec0.py::_vjp_bwd``, autograd through the parity form plus the
-activation in the inputs' dtype; it never launches the kernel.
+activation in the inputs' dtype; it never launches the kernel. On a CUDA
+tensor the forward reaches the kernel through the CUDA-only custom op
+``torch.ops.fetal.up_concat_conv3x3`` (:func:`up_concat_conv3x3_op`: the
+ctypes launch with its host planning, and a fake implementation for
+``torch.export``), as ``ops/conv3x3.py`` does for the conv.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from fetal_mri_segmentation_tpu_torch.ops import cuda_lib, tiling
 from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import (
     apply_activation, conv3d_ndhwc)
+from fetal_mri_segmentation_tpu_torch.utils.device import device_table
 
 
 # S[r][j, k] = 1 iff kernel tap k lands on coarse source offset j for output
@@ -44,7 +49,7 @@ from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import (
 _S = (((1, 0, 0), (0, 1, 1)), ((1, 1, 0), (0, 0, 1)))
 
 
-@functools.cache
+@device_table
 def _tap_merge(device: torch.device) -> torch.Tensor:
     # one copy per device: a fresh host-to-device copy on every call would
     # stall the host until the stream drains. Made outside inference mode,
@@ -239,6 +244,29 @@ def up_concat_conv3x3_vjp(x_deep, skip, kernel, bias, g,
     return tuple(grads.pop(0) if t.requires_grad else None for t in leaves)
 
 
+@torch.library.custom_op("fetal::up_concat_conv3x3", mutates_args=(),
+                         device_types="cuda")
+def up_concat_conv3x3_op(x_deep: torch.Tensor, skip: torch.Tensor,
+                         kernel: torch.Tensor, bias: torch.Tensor,
+                         activation: str,
+                         negative_slope: float) -> torch.Tensor:
+    """One launch of ``dec0_kernel`` on CUDA tensors: x_deep (B, dc, hc,
+    wc, C_up) and skip (B, 2dc, 2hc, 2wc, C_skip) bf16, kernel (3, 3, 3,
+    C_up + C_skip, C_out) bf16, bias fp32 -> y (B, 2dc, 2hc, 2wc, C_out)
+    bf16, contiguous; counted in ``up_concat_conv3x3_kernel.launches``."""
+    y = _launch(x_deep, skip, kernel, bias, activation, negative_slope)
+    up_concat_conv3x3_kernel.launches += 1
+    return y
+
+
+@up_concat_conv3x3_op.register_fake
+def _up_concat_conv3x3_fake(x_deep, skip, kernel, bias, activation,
+                            negative_slope):
+    B, dc, hc, wc = x_deep.shape[:4]
+    return x_deep.new_empty((B, 2 * dc, 2 * hc, 2 * wc, kernel.shape[-1]),
+                            dtype=torch.bfloat16)
+
+
 class _FusedDecoder(torch.autograd.Function):
     """The fused decoder level with its gradient: the kernel (or, on a CPU
     tensor, its plain version) forward, :func:`up_concat_conv3x3_vjp`
@@ -251,9 +279,13 @@ class _FusedDecoder(torch.autograd.Function):
         if x_deep.device.type == "cpu":
             return up_concat_conv3x3_reference(x_deep, skip, kernel, bias,
                                                activation, negative_slope)
-        y = _launch(x_deep, skip, kernel, bias, activation, negative_slope)
-        up_concat_conv3x3_kernel.launches += 1
-        return y
+        if (x_deep.device.type != "cuda"
+                and not torch.compiler.is_compiling()):
+            # the op's fake implementation answers only in a trace
+            cuda_lib.require_cuda_bf16("up_concat_conv3x3_kernel",
+                                       x_deep=x_deep)
+        return up_concat_conv3x3_op(x_deep, skip, kernel, bias, activation,
+                                    float(negative_slope))
 
     @staticmethod
     def backward(ctx, g):

@@ -15,7 +15,8 @@ itself:
   rows, with the backward that returns the rows' gradients to their owners
   (every 3^3 conv of a depth-sharded forward);
 - :func:`all_gather_cat`: the whole volume from its slabs (the spatial
-  predictor's output).
+  predictor's output, and a level of a depth-sharded forward whose slabs
+  can no longer be halved), with :func:`own_rows` its inverse.
 
 NCCL and gloo both take all of them, gloo also for CUDA tensors (staged
 through the host). Neither offers the point-to-point path for CUDA tensors
@@ -87,10 +88,39 @@ def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
     return [p.view(t.dtype).view(t.shape) for p in parts]
 
 
+class _GatherCat(torch.autograd.Function):
+    """See :func:`all_gather_cat`."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.meta = (group, dim)
+        return torch.cat(_all_gather(t, group), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.meta
+        # every rank ran the gathered tensor's consumers on its own rows of
+        # their result: its rows' gradient is the sum of every rank's
+        return own_rows(all_reduce_sum(g.contiguous(), group), group,
+                        dim), None, None
+
+
 def all_gather_cat(t: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim`` in rank order (the whole
-    volume from its depth slabs), outside autograd."""
-    return torch.cat(_all_gather(t.detach(), group), dim)
+    volume from its depth slabs). Differentiable: the backward gives each
+    rank its own rows of the gradient summed over the ranks (a reduce
+    scatter), so where every rank runs the same layers on the whole tensor
+    and keeps its own rows of their output (``models/layers.py::
+    gather_level``), each row's gradient reaches its owner once. Every rank
+    of the group calls it in the same order, forward and backward."""
+    return _GatherCat.apply(t, group, int(dim))
+
+
+def own_rows(t: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """This rank's slab of ``t`` split evenly along ``dim`` over the ranks
+    of ``group`` in rank order: the inverse of :func:`all_gather_cat`."""
+    rows = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, dist.get_rank(group) * rows, rows)
 
 
 def _edges(x: torch.Tensor, axis: int, first: int, last: int) -> torch.Tensor:

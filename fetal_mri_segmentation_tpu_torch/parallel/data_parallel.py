@@ -111,13 +111,16 @@ def replicate_state(mesh: DataMesh, state):
     return state
 
 
-def set_bn_group(model, group) -> None:
+def set_bn_group(model, group, whole_group=None) -> None:
     """Make every BatchNorm of ``model`` a sync BatchNorm over ``group``
     (the JAX steps rebuild the model with ``bn_axis_name``; a module owns
-    its parameters, so the port sets the group in place)."""
+    its parameters, so the port sets the group in place). ``whole_group``:
+    on a depth-sharded mesh, the group over which a level that every rank
+    holds whole is summed (``models/layers.py::BatchNorm.whole_group``)."""
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.group = group
+            m.whole_group = whole_group
 
 
 def make_dp_train_step(model, config, mesh: DataMesh, *,

@@ -30,9 +30,11 @@ has no partitioner and the port runs one process per device, so here:
   a time. On one device (:func:`make_direct_predictor`) it is the direct
   predictor: no patch grid, no overlap recompute, no seams.
 
-Volume dims must be divisible by 2^(depth-1), and a slab's depth too
-(``models/layers.py::check_slab_depth``, a guard of the port's own where
-XLA would reshard).
+Volume dims must be divisible by 2^(depth-1), and the depth by the
+spatial ranks, as in the JAX package. Where a rank's slab goes odd before
+the last halving, the models gather that level whole on every rank and run
+the coarser levels there, where XLA would reshard
+(``models/layers.py::gather_level``).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import torch.distributed as dist
 from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
     flip_member)
 from fetal_mri_segmentation_tpu_torch.models.layers import (
-    check_slab_depth, set_spatial_group)
+    set_spatial_group)
 from fetal_mri_segmentation_tpu_torch.ops.augment import (
     PERMUTATION_KEYS, permute_volume, reverse_permute_volume)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
@@ -173,7 +175,7 @@ def make_gspmd_train_step(model, config, mesh: HybridMesh, *,
     single-device step on the global batch: the loss and metrics are the
     global batch's on every rank, BatchNorm's moments the whole mesh's, the
     gradients summed over the mesh."""
-    set_bn_group(model, mesh.group)
+    set_bn_group(model, mesh.group, whole_group=mesh.data_group)
     inner = make_train_step(model, config, generator=generator,
                             axis_name=mesh.group, partition=mesh)
 
@@ -302,8 +304,7 @@ class SpatialPredictor:
     def _check_shape(self, shape):
         """Fail loudly where the whole-volume forward cannot run: spatial
         dims must survive depth-1 halvings, the depth must split evenly over
-        the mesh's spatial ranks into slabs that survive them too, and
-        48-symmetry TTA needs a cube."""
+        the mesh's spatial ranks, and 48-symmetry TTA needs a cube."""
         depth = getattr(self.config, "depth", None)
         if depth is None:
             raise ValueError(
@@ -321,8 +322,6 @@ class SpatialPredictor:
             raise ValueError(
                 f"volume depth {shape[0]} not divisible by the mesh's "
                 f"{self._n_spatial} spatial shards")
-        if self._n_spatial > 1:
-            check_slab_depth(shape[0] // self._n_spatial, int(depth) - 1)
         if self.tta_mode == "permute" and len(set(shape)) != 1:
             raise ValueError(
                 f"48-symmetry TTA (permute) on the whole-volume predictor "

@@ -8,6 +8,7 @@
         [--device-preprocess] [--prob-map]
         [--prob-dtype {float32,float16,uint8,uint16}] [--device cuda]
         [--num-devices N | --spatial-devices N] [--share-devices]
+        [--from-keras MODEL_H5] [--export PATH]
 
 Each CASE is a directory with ``<modality>.nii[.gz]`` files (and optionally
 ``truth.nii[.gz]``) or a single NIfTI file for one-modality configs. The
@@ -32,9 +33,12 @@ over the 8 axis flips (``--tta-mode`` implies ``--tta``);
 ``--device-preprocess`` resamples and normalizes on the device;
 ``--prob-map`` writes the probability map, moved to the host in
 ``--prob-dtype`` (uint8 / uint16 stay integer on disk via NIfTI
-``scl_slope``). Not ported yet, each refused by name: ``--export``
-(``torch.export``) and ``--from-keras`` (Keras interop), under ROADMAP.md
-queue 1.
+``scl_slope``). ``--from-keras MODEL_H5`` takes the architecture and the
+weights from a reference Keras ``.h5`` instead (``utils/keras_migrate.py``;
+needs h5py). ``--export PATH`` writes the whole-volume label-map program
+at ``config.image_shape`` as one portable artifact and predicts nothing
+(``utils/export.py``: ``torch.export``; load it with
+``load_predictor(PATH)``).
 
 The validation-set path runs on several devices, one process each:
 ``--num-devices N`` shards the sliding window's patch grid over N ranks
@@ -69,8 +73,11 @@ from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
 from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
     make_hybrid_mesh)
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
+from fetal_mri_segmentation_tpu_torch.utils.export import export_predictor
 from fetal_mri_segmentation_tpu_torch.utils.io_utils import (
     case_name_from_path)
+from fetal_mri_segmentation_tpu_torch.utils.keras_migrate import (
+    derive_config_from_keras_h5, load_old_model)
 
 
 def assign_output_names(paths: Sequence[str]):
@@ -90,10 +97,10 @@ def assign_output_names(paths: Sequence[str]):
 
 
 def check_flags(inputs, *, device_preprocess=False, prob_map=False,
-                prob_dtype="float32", export_path=None, from_keras=None,
+                prob_dtype="float32", export_path=None,
                 num_devices=1, spatial_devices=1) -> None:
     """The root ``predict.py``'s flag validation, before any model is
-    built, then the port's refusals of what it does not run yet."""
+    built."""
     multi = ((num_devices or 1) > 1) or ((spatial_devices or 1) > 1)
     if inputs and multi:
         raise ValueError(
@@ -116,14 +123,15 @@ def check_flags(inputs, *, device_preprocess=False, prob_map=False,
         raise ValueError("--prob-dtype applies to the probability-map "
                          "transfer only — pass --prob-map (label-map "
                          "output already uses the device-side label map)")
+
+
+def _load_model(config, params, from_keras, device):
+    """The serving model: from a Keras ``.h5`` (the config already derived
+    from it), an exported ``.npz``, or the port's checkpoint."""
     if from_keras:
-        raise NotImplementedError(
-            "--from-keras: Keras interop is not ported yet (ROADMAP.md "
-            "queue 1, interop)")
-    if export_path:
-        raise NotImplementedError(
-            "--export: the portable program (torch.export) is not ported "
-            "yet (ROADMAP.md queue 1, utils/export.py)")
+        return load_old_model(from_keras, config=config, with_optimizer=False,
+                              verbose=False, derived=True, device=device)[0]
+    return load_serving_model(config, params, device)
 
 
 def _validation_set(config, model, *, output_dir, overlap, tta,
@@ -144,7 +152,8 @@ def _validation_set(config, model, *, output_dir, overlap, tta,
 
 
 def _predict_as_rank(config, params, *, num_devices, spatial_devices,
-                     device, share_devices, verbose, **kwargs) -> int:
+                     device, share_devices, verbose, from_keras=None,
+                     **kwargs) -> int:
     """One rank of the validation-set prediction on N devices."""
     initialize_distributed(device=device, share_devices=share_devices)
     try:
@@ -157,7 +166,7 @@ def _predict_as_rank(config, params, *, num_devices, spatial_devices,
             mesh, spatial_mesh = make_mesh(num_devices, device=device,
                                            share_devices=share_devices), None
             dev, rank = mesh.device, mesh.rank
-        model = load_serving_model(config, params, dev)
+        model = _load_model(config, params, from_keras, dev)
         return _validation_set(config, model, device=dev, mesh=mesh,
                                spatial_mesh=spatial_mesh,
                                verbose=verbose and rank == 0, **kwargs)
@@ -189,21 +198,37 @@ def main(config: Config, params: Optional[str] = None,
     True/"permute" | "flips" (``resolve_tta``). ``num_devices`` /
     ``spatial_devices`` above 1, ``share_devices``: see the module
     docstring; ``rank_timeout_s``: the ranks this process starts are
-    killed, and the call raises, when they run longer."""
-    check_flags(inputs, device_preprocess=device_preprocess,
-                prob_map=prob_map, prob_dtype=prob_dtype,
-                export_path=export_path, from_keras=from_keras,
-                num_devices=num_devices, spatial_devices=spatial_devices)
+    killed, and the call raises, when they run longer. ``from_keras``: a
+    reference Keras ``.h5`` in place of ``params``; ``export_path``: write
+    the label-map program there (``utils/export.py``) and return None."""
+    if from_keras:
+        # architecture from the file's model_config, as the root
+        # predict.py derives it before anything else
+        config = derive_config_from_keras_h5(from_keras, base=config,
+                                             verbose=verbose)
     if overlap is None:
         overlap = config.validation_patch_overlap
+    check_flags(inputs, device_preprocess=device_preprocess,
+                prob_map=prob_map, prob_dtype=prob_dtype,
+                export_path=export_path,
+                num_devices=num_devices, spatial_devices=spatial_devices)
+    if export_path:
+        export_predictor(_load_model(config, params, from_keras, device),
+                         config, config.image_shape, export_path,
+                         overlap=overlap, patch_batch_size=patch_batch_size,
+                         threshold=threshold, tta=tta, direct=direct)
+        if verbose:
+            print(f"exported portable label-map program to {export_path}"
+                  + (" (direct whole-volume mode)" if direct else ""))
+        return None
     n_dev = max(num_devices or 1, spatial_devices or 1)
     kwargs = dict(output_dir=output_dir, overlap=overlap, tta=tta,
                   patch_batch_size=patch_batch_size, direct=direct,
                   prob_map=prob_map, threshold=threshold,
                   prob_dtype=prob_dtype, verbose=verbose)
     ranks = dict(num_devices=num_devices, spatial_devices=spatial_devices,
-                 device=device,
-                 share_devices=share_devices, **kwargs)
+                 device=device, share_devices=share_devices,
+                 from_keras=from_keras, **kwargs)
     world = int(os.environ.get("WORLD_SIZE", 1))
     if world > 1:
         # one rank under a launcher
@@ -218,12 +243,13 @@ def main(config: Config, params: Optional[str] = None,
         if dev.type == "cuda" and n_dev > cards and not share_devices:
             # running on fewer devices than asked for must not pass silently
             raise ValueError(f"requested {n_dev} devices, have {cards}")
-        serving_weights(config, params)  # before any rank starts
+        if not from_keras:
+            serving_weights(config, params)  # before any rank starts
         build_kernels_before_ranks(config, device)
         run_ranks(_rank_main, n_dev, (n_dev, free_port(), config.to_dict(),
                                       params, ranks), rank_timeout_s)
         return None
-    model = load_serving_model(config, params, device)
+    model = _load_model(config, params, from_keras, device)
     if not inputs:
         return _validation_set(config, model, device=device, **kwargs)
     predictor = build_serving_predictor(
@@ -279,9 +305,11 @@ def _parser() -> argparse.ArgumentParser:
                          "uint8/uint16 stay integer on disk (NIfTI "
                          "scl_slope)")
     ap.add_argument("--export", metavar="PATH", default=None,
-                    help="not ported yet (torch.export)")
+                    help="write the whole-volume label-map program as one "
+                         "portable artifact (torch.export) and exit")
     ap.add_argument("--from-keras", metavar="MODEL_H5", default=None,
-                    help="not ported yet")
+                    help="architecture and weights from a reference Keras "
+                         ".h5 (needs h5py)")
     ap.add_argument("--num-devices", type=int, default=1,
                     help="shard the patch grid over N devices (the "
                          "validation-set path)")

@@ -38,8 +38,11 @@ cards than ranks (over gloo: a check of the multi-rank path, no speed-up).
 when the file holds them, that ``tools/export_params_npz.py`` wrote from a
 checkpoint of the JAX package. ``--profile LOGDIR`` writes a
 ``torch.profiler`` trace of the run. ``--smoke`` trains a tiny model for
-two epochs on synthetic cases it writes itself. Not ported, refused by
-name: ``--from-keras`` (Keras interop).
+two epochs on synthetic cases it writes itself. ``--from-keras MODEL_H5``
+takes the architecture, the weights and, where the file holds them, the
+Adam state from a reference Keras ``.h5`` (``utils/keras_migrate.py``;
+needs h5py); it refuses to run over an existing checkpoint without
+``--overwrite``, as the root ``train.py`` does.
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ from fetal_mri_segmentation_tpu_torch.training.loop import train_model
 from fetal_mri_segmentation_tpu_torch.training.state import (
     create_train_state)
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
+from fetal_mri_segmentation_tpu_torch.utils.keras_migrate import (
+    derive_config_from_keras_h5, load_old_model)
 from fetal_mri_segmentation_tpu_torch.utils.params import (
     from_flax, init_flax_like, load_npz_train_state)
 from fetal_mri_segmentation_tpu_torch.utils.profiling import trace
@@ -104,14 +109,13 @@ def fetch_training_data_files(data_dir: str, modalities, truth_name="truth"):
     return training_data_files, subject_ids
 
 
-def check_flags(config, *, from_keras=None) -> None:
-    """The port's refusals of what it does not train with yet, before
-    anything is built."""
-    if from_keras:
-        raise NotImplementedError(
-            "--from-keras: Keras interop is not ported yet (ROADMAP.md "
-            "queue 1, interop)")
-    check_supported(config)  # a fold tuple
+def check_flags(config, *, from_keras=None, init_params=None) -> None:
+    """Refusals before anything is built: two starting points at once, and
+    what the port does not train with (a fold tuple)."""
+    if from_keras and init_params:
+        raise ValueError("--from-keras and --init-params are two starting "
+                         "points; pass one")
+    check_supported(config)
 
 
 def _build_dataset(config, data_dir: str, overwrite: bool,
@@ -142,7 +146,7 @@ def _build_dataset(config, data_dir: str, overwrite: bool,
               f"{time.perf_counter() - t0:.4f} s", flush=True)
 
 
-def _train(config, *, mesh, init_params, device, seed, verbose,
+def _train(config, *, mesh, init_params, from_keras, device, seed, verbose,
            profile_dir):
     """Model, state, generators, cache and the loop, on one device or as
     one rank of ``mesh``; the dataset exists."""
@@ -154,22 +158,32 @@ def _train(config, *, mesh, init_params, device, seed, verbose,
         # model and state (train_model restores the checkpoint)
         ckpt_io = CheckpointIO(config.model_file)
         resuming = ckpt_io.exists() and not overwrite
-        if init_params and resuming:
+        start = (f"--init-params {init_params}" if init_params
+                 else f"--from-keras {from_keras}" if from_keras else None)
+        if start and resuming:
             sys.exit(
-                f"--init-params {init_params}: a checkpoint already exists "
-                f"at {config.model_file} — resuming it would ignore the "
-                "file. Pass --overwrite to start from the file, or a fresh "
+                f"{start}: a checkpoint already exists at "
+                f"{config.model_file} — resuming it would ignore the file. "
+                "Pass --overwrite to start from the file, or a fresh "
                 "model_file")
-        model = build_model(config, device)
-        state = create_train_state(model, config)
-        if init_params:
-            with_adam = load_npz_train_state(state, init_params)
-            if verbose:
-                print(f"[init] {init_params}: variables"
-                      + (f" and Adam state at step {state.step}, lr "
-                         f"{state.learning_rate:g}" if with_adam else ""))
-        elif not resuming:
-            model.load_state_dict(from_flax(init_flax_like(config, seed)))
+        if from_keras:
+            # the config was derived from the file in main
+            model, state, _ = load_old_model(from_keras, config=config,
+                                             verbose=verbose, derived=True,
+                                             device=device)
+        else:
+            model = build_model(config, device)
+            state = create_train_state(model, config)
+            if init_params:
+                with_adam = load_npz_train_state(state, init_params)
+                if verbose:
+                    print(f"[init] {init_params}: variables"
+                          + (f" and Adam state at step {state.step}, lr "
+                             f"{state.learning_rate:g}" if with_adam
+                             else ""))
+            elif not resuming:
+                model.load_state_dict(from_flax(init_flax_like(config,
+                                                               seed)))
         # data-order exact resume: fast-forward the generators by the
         # start_epoch * steps batches the interrupted run consumed
         start_epoch = (ckpt_io.peek_epoch() or 0) if resuming else 0
@@ -267,13 +281,18 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
     only started the ranks). ``share_devices``: see the module docstring.
     ``rank_timeout_s``: the ranks this process starts are killed, and the
     call raises, when they run longer."""
-    check_flags(config, from_keras=from_keras)
+    if from_keras:
+        # the MODEL config comes from the .h5 before anything reads it: the
+        # dataset build globs its modalities, the generators use its patch
+        config = derive_config_from_keras_h5(from_keras, base=config,
+                                             verbose=verbose)
+    check_flags(config, from_keras=from_keras, init_params=init_params)
     # one overwrite for both surfaces (the CLI argument and the config key):
     # train_model gates its restore on config.overwrite
     overwrite = bool(overwrite or config.overwrite)
     config.overwrite = overwrite
-    kwargs = dict(init_params=init_params, seed=seed, verbose=verbose,
-                  profile_dir=profile_dir)
+    kwargs = dict(init_params=init_params, from_keras=from_keras, seed=seed,
+                  verbose=verbose, profile_dir=profile_dir)
 
     if int(os.environ.get("WORLD_SIZE", 1)) > 1:
         # one rank under a launcher: rank 0 builds what every rank reads
@@ -355,7 +374,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="start from the variables (and Adam state) that "
                          "tools/export_params_npz.py wrote")
     ap.add_argument("--from-keras", metavar="MODEL_H5", default=None,
-                    help="not ported yet")
+                    help="start from a reference Keras .h5: architecture, "
+                         "weights and Adam state (needs h5py)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--share-devices", action="store_true",
                     help="let ranks share a card where num_devices exceeds "

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -17,3 +19,20 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"device {str(device)!r}: the port runs on 'cpu' "
                          "or 'cuda'")
     return dev
+
+
+def device_table(make):
+    """``functools.cache`` for a constant table kept per device (a fresh
+    host-to-device copy on every call would stall the host), except while
+    ``torch.export`` traces: a table made then is a fake tensor, which the
+    cache would hand to every later call. The traced program holds its own
+    copy as a constant instead."""
+    cached = functools.cache(make)
+
+    @functools.wraps(make)
+    def table(*args):
+        if torch.compiler.is_compiling():
+            return make(*args)
+        return cached(*args)
+
+    return table

@@ -10,13 +10,12 @@ port moves it unpacked.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from fetal_mri_segmentation_tpu_torch.inference.labelmaps import (
     label_map_dtype)
+from fetal_mri_segmentation_tpu_torch.utils.device import device_table
 
 
 def device_label_map(prob: torch.Tensor, threshold: float, n_labels: int,
@@ -41,7 +40,7 @@ def device_label_map(prob: torch.Tensor, threshold: float, n_labels: int,
                        torch.zeros_like(label_map))
 
 
-@functools.cache
+@device_table
 def _label_table(labels: tuple, dtype: torch.dtype,
                  device: torch.device) -> torch.Tensor:
     # one copy per device: a host-to-device copy on every call would wait

@@ -16,6 +16,10 @@ D, H, W), ``head.weight``, ``seg{L}.weight``.
 params (and ``batch_stats``) with ``np.savez`` where JAX is installed, and
 optax's Adam state under ``opt/``; :func:`from_flax` reads the variables
 here, and :func:`load_npz_train_state` both (``train --init-params``).
+:func:`to_flax` is its exact inverse (the Keras exporters start from it),
+and :func:`unflatten` / :func:`flatten` move between the flattened form and
+flax's nested dicts, on which the Keras mappings (``utils/keras_*.py``)
+work.
 """
 
 from __future__ import annotations
@@ -61,6 +65,66 @@ def from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{path}: unknown parameter {parts[-1]!r}")
         state[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` (or any mapping of its parameter names,
+    such as Adam's moments per parameter) -> flattened flax variables in
+    fp32 numpy, the exact inverse of :func:`from_flax`: a conv weight goes
+    from OIDHW back to DHWIO, a transposed-conv weight from (C_in, C_out,
+    D, H, W) back to flax's DHWIO with its three spatial axes flipped back,
+    and BatchNorm's running statistics go under ``batch_stats/``. Keys
+    follow :func:`flax_param_shapes`: params without a prefix."""
+    flat = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if parts[-1] == "weight":
+            if arr.ndim != 5:
+                raise ValueError(f"{name}: expected a 5-D weight, got shape "
+                                 f"{arr.shape}")
+            parts[-1] = "kernel"
+            if len(parts) > 1 and parts[-2] == "deconv":
+                arr = arr.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+            else:
+                arr = arr.transpose(2, 3, 4, 1, 0)  # OIDHW -> DHWIO
+        elif parts[-1] not in _VECTORS:
+            raise ValueError(f"{name}: unknown parameter {parts[-1]!r}")
+        key = "/".join(parts)
+        if parts[-1] in ("mean", "var"):
+            key = "batch_stats/" + key
+        flat[key] = np.ascontiguousarray(arr)
+    return flat
+
+
+def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    """``{"a/b/c": v}`` -> ``{"a": {"b": {"c": v}}}`` (flax's nesting)."""
+    tree = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The inverse of :func:`unflatten`, in the tree's own order."""
+    flat = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            flat.update(flatten(value, f"{prefix}{key}/"))
+        else:
+            flat[f"{prefix}{key}"] = value
+    return flat
+
+
+def flax_params(model) -> dict:
+    """``model``'s parameters (no running statistics) as a nested flax
+    params tree in fp32 numpy: what the JAX Keras mappings take as
+    ``variables["params"]``."""
+    return unflatten(to_flax(dict(model.named_parameters())))
 
 
 def load_optax_adam_state(optimizer, model, count: int,

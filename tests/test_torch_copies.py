@@ -2,7 +2,8 @@
 (``config``, ``utils/nifti.py``, ``utils/io_utils.py``,
 ``utils/geometry.py``, ``inference/labelmaps.py``,
 ``utils/surface_metrics.py``, ``data/normalize.py``'s storage passes, the
-synthetic cases of ``tests/synthetic.py``) so that it imports
+synthetic cases of ``tests/synthetic.py``, ``data/blosc_compat.py`` and the
+Keras readers and layer orders of ``utils/keras_*.py``) so that it imports
 nothing of the JAX package. Each copy is held equal to its original here:
 the same fields, defaults and loaded configs, the same arrays and affines,
 files that either side reads back as the other wrote them."""
@@ -253,3 +254,56 @@ def test_synthetic_cases_equal(tmp_path, modalities):
             a, b = port_nifti.load_nifti(f), jax_nifti.load_nifti(g)
             np.testing.assert_array_equal(a.get_fdata(), b.get_fdata())
             np.testing.assert_array_equal(a.affine, b.affine)
+
+
+# (port module, JAX module, names) of the interop code copied verbatim; the
+# functions adapted to the port are held to their originals' results in
+# tests/test_torch_keras.py and test_torch_blosc.py
+VERBATIM = [
+    ("data.blosc_compat", "data.blosc_compat",
+     ("_libblosc", "blosc_available", "blosc_decompress", "blosc_compress",
+      "dataset_filters", "is_unreadable_blosc", "_filter_registered",
+      "BloscDataset")),
+    ("utils.keras_import", "utils.keras_import",
+     ("keras_weight_list_from_model", "keras_weight_list_from_h5",
+      "_unet_param_order", "_is_norm", "_is_conv", "_isensee_param_order")),
+    ("utils.keras_export", "utils.keras_export",
+     ("_weighted_layers", "_set_weights")),
+    ("utils.keras_opt", "utils.keras_opt",
+     ("AdamSlots", "_names_from_group", "keras_adam_slots_from_h5",
+      "keras_adam_slots_from_model", "slots_as_weight_list")),
+    ("utils.keras_migrate", "utils.keras_migrate",
+     ("read_keras_model_config", "read_keras_training_lr", "_layer_seq",
+      "_is_instance_like", "derive_arch_from_model_config",
+      "derive_arch_from_weight_list")),
+]
+
+
+@pytest.mark.parametrize("port,original,name", [
+    (p, o, n) for p, o, names in VERBATIM for n in names],
+    ids=lambda v: v if isinstance(v, str) else None)
+def test_interop_source_equals_original(port, original, name):
+    """Each verbatim copy of the interop modules has the original's code
+    (docstrings aside), and the constants they read are equal."""
+    import ast
+    import importlib
+    import inspect
+
+    got = importlib.import_module(f"fetal_mri_segmentation_tpu_torch.{port}")
+    want = importlib.import_module(f"fetal_mri_segmentation_tpu.{original}")
+
+    def code(obj):
+        obj = inspect.unwrap(obj)
+        tree = ast.parse(inspect.getsource(obj))
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if (isinstance(body, list) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                body.pop(0)  # the docstring
+        return ast.dump(tree)
+    assert code(getattr(got, name)) == code(getattr(want, name))
+    for const in ("BLOSC_FILTER_ID", "_NORM_CLASSES"):
+        if hasattr(want, const):
+            assert getattr(got, const) == getattr(want, const)

@@ -27,7 +27,7 @@ from fetal_mri_segmentation_tpu.data import (  # noqa: E402
 from fetal_mri_segmentation_tpu.inference.predict import (  # noqa: E402
     load_global_moments as jax_moments)
 from fetal_mri_segmentation_tpu_torch.data import (  # noqa: E402
-    build as port_build, normalize as port_normalize)
+    blosc_compat, build as port_build, normalize as port_normalize)
 from fetal_mri_segmentation_tpu_torch.data.memory import (  # noqa: E402
     InMemoryDataFile)
 from fetal_mri_segmentation_tpu_torch.inference.predict import (  # noqa: E402
@@ -244,10 +244,13 @@ def test_reader_errors_name_the_way_out(cases, built, tmp_path, monkeypatch):
         port_build.open_data_file(built[None][0])
 
 
-def test_reader_refuses_a_blosc_dataset(tmp_path):
+def test_reader_refuses_a_blosc_dataset(tmp_path, monkeypatch):
     """A dataset whose filter pipeline holds blosc (id 32001, the PyTables
-    reference format) is refused with a pointer to the converter; the
-    filter need not be registered to declare it."""
+    reference format; the filter need not be registered to declare it) is
+    read through ``data/blosc_compat.py`` where libblosc is installed (its
+    never-written chunks are HDF5's fill value, 0), and refused, naming
+    libblosc and the port's converter, where it is not.
+    ``tests/test_torch_blosc.py`` holds the reads to the JAX package's."""
     import h5py
     path = str(tmp_path / "blosc.h5")
     with h5py.File(path, "w") as f:
@@ -262,7 +265,13 @@ def test_reader_refuses_a_blosc_dataset(tmp_path):
                                  (2, 2, 4, 256, 5, 1, 0))
             h5py.h5d.create(f.id, name.encode(), h5py.h5t.py_create(dtype),
                             space, dcpl=plist)
-    with pytest.raises(RuntimeError, match="convert_reference_h5"):
+    if blosc_compat.blosc_available():
+        with port_build.open_data_file(path) as f:
+            assert isinstance(f.root.data, blosc_compat.BloscDataset)
+            np.testing.assert_array_equal(
+                f.root.data[0], np.zeros((1, 4, 4, 4), np.float32))
+    monkeypatch.setattr(blosc_compat, "blosc_available", lambda: False)
+    with pytest.raises(RuntimeError, match="libblosc.*--convert"):
         port_build.open_data_file(path)
 
 

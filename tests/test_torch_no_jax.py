@@ -9,7 +9,10 @@ and the experiment path runs end to end (a native dataset built from NIfTI
 cases by ``train.main --device cpu`` for one epoch with scale and rotation
 augmentation, the validation-set ``predict.main`` from the port's own
 checkpoint, ``evaluate.main``, ``ensemble.main``; an HDF5 file at
-``config.data_file`` raises and names the converter);
+``config.data_file`` raises and names the converter); interop runs as far
+as it can without h5py and Keras (the Keras mapping through a weight list,
+``load_old_model`` refused with h5py named, the portable program exported
+and loaded);
 the device case cache and the data mesh run too (``train.main`` with
 ``device_case_cache="on"`` equal to "off", and one rank that joins a gloo
 group through ``initialize_distributed`` and takes a data-parallel cached
@@ -293,6 +296,39 @@ except ImportError as e:
     assert "--convert" in str(e)
 else:
     raise AssertionError("an HDF5 dataset opened without h5py")
+
+# interop where h5py and Keras are absent: the Keras mapping through a
+# weight list (chip_smoke.py's stand-in), --from-keras refused with h5py
+# named, a blosc dataset refused with the converter named, and the
+# portable program exported and loaded on the CPU
+from fetal_mri_segmentation_tpu_torch.utils.export import (
+    export_predictor, load_predictor)
+from fetal_mri_segmentation_tpu_torch.utils.keras_export import (
+    export_keras_unet_weights)
+from fetal_mri_segmentation_tpu_torch.utils.keras_import import (
+    keras_state_dict, keras_weight_list_from_model)
+from fetal_mri_segmentation_tpu_torch.utils.keras_migrate import (
+    load_old_model)
+
+icfg = Config(image_shape=(12, 12, 12), patch_shape=(8, 8, 8), depth=2,
+              n_base_filters=8, deconvolution=True, compute_dtype="float32")
+imodel = build_model(icfg, "cpu")
+stand_in = chip_smoke.keras_stand_in(icfg)
+export_keras_unet_weights(imodel, stand_in)
+back = keras_state_dict(icfg, keras_weight_list_from_model(stand_in))
+assert all(torch.equal(back[k], v) for k, v in imodel.state_dict().items())
+try:
+    load_old_model(os.path.join(work, "model.h5"), device="cpu")
+except ImportError as e:
+    assert "h5py" in str(e), e
+else:
+    raise AssertionError("--from-keras ran without h5py")
+artifact = os.path.join(work, "model.fetal")
+export_predictor(imodel, icfg, icfg.image_shape, artifact, overlap=2,
+                 direct=True)
+got = load_predictor(artifact, device="cpu")(x)
+want = make_direct_predictor(imodel, icfg, device="cpu").predict_labels(x)
+assert np.array_equal(got, want)
 
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 assert not loaded, loaded

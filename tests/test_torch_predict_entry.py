@@ -198,8 +198,11 @@ def test_predict_main_uint8_probabilities_match_root(experiment, monkeypatch):
      "--params PARAMS.npz"),
     ({"inputs": None, "spatial_devices": 2, "num_devices": 2}, ValueError,
      "mutually exclusive"),
-    ({"export_path": "x"}, NotImplementedError, "torch.export"),
-    ({"from_keras": "m.h5"}, NotImplementedError, "Keras interop"),
+    # --export and --from-keras are ported (tests/test_torch_export.py,
+    # test_torch_keras.py): they look for their weights, the .npz or the
+    # .h5, before anything else
+    ({"export_path": "x"}, FileNotFoundError, "unused.npz"),
+    ({"from_keras": "m.h5"}, FileNotFoundError, "m.h5"),
     # the validation-set path is ported: with no weights at either place
     # it names both ways to get them
     ({"inputs": None}, FileNotFoundError, "--params PARAMS.npz"),

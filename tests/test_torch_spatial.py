@@ -20,6 +20,10 @@ halo exchange and each conv block on a slab are held to the whole tensor
 within 1e-6 (forward, absolute) and 1e-5 (gradients, relative to the
 largest entry over the block's parameters). ``train.main`` with
 ``spatial_devices=2`` starts its own two ranks and trains like one device.
+The ``reshard`` scenarios and predictions take a depth of 12 at depth 3:
+a 2-rank slab goes 6 -> 3, a 4-rank one is 3 rows, and the models gather
+the level that cannot be halved (``models/layers.py::gather_level``), as
+XLA reshards it; they are held to the same tolerances.
 """
 
 import csv
@@ -51,7 +55,7 @@ from fetal_mri_segmentation_tpu_torch import train as entry  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.config import Config  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models import build_model  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models.layers import (  # noqa: E402
-    set_spatial_group)
+    gather_level)
 from fetal_mri_segmentation_tpu_torch.parallel.distributed import (  # noqa: E402
     free_port)
 from fetal_mri_segmentation_tpu_torch.parallel.spatial import (  # noqa: E402
@@ -251,16 +255,35 @@ def test_spatial_predictor_on_two_ranks(runs, name, tta):
         "spatial"], ranks[2][1]["predictor"][(name, tta)]["spatial"])
 
 
+@pytest.mark.parametrize("world", sorted(W.RESHARD_MESHES))
+@pytest.mark.parametrize("name", sorted(W.PREDICTORS))
+def test_spatial_predictor_reshards_an_odd_slab(runs, world, name):
+    """A (12, 8, 8) volume at depth 3, which the JAX package accepts: on 2
+    ranks (slabs of 6 -> 3 rows) and on a 1 x 4 mesh (slabs of 3 rows)
+    the probabilities on every rank equal the direct predictor's within
+    1e-5, the label maps bit for bit."""
+    _, _, ranks = runs
+    for r in ranks[world]:
+        got = r["reshard_predictor"][(name, False)]
+        assert got["spatial"].shape == (1,) + W.RESHARD
+        _close(got["spatial"], got["direct"], "direct", 1e-5)
+        np.testing.assert_array_equal(got["labels"], got["direct_labels"])
+
+
 def test_slab_guard_and_divisibility_errors():
-    """The port's one new refusal (a slab that does not stay even at every
-    level), JAX's "not divisible" for a batch or depth that does not split
-    over the mesh, the mesh that asks for more ranks than there are, and
-    the spatial predictor's volume depth."""
+    """Where a slab goes odd the forward gathers that level instead of
+    refusing (``gather_level``); what is refused is JAX's: a batch or depth
+    that does not split over the mesh, a mesh that asks for more ranks than
+    there are, and the spatial predictor's volume depth."""
+    assert gather_level(6, 2) == 1
+    assert gather_level(3, 2) == 0
+    assert gather_level(8, 2) is None
+    assert gather_level(60, 3) == 2      # (120, 128, 128) at depth 4, 2 ranks
+    assert gather_level(56, 4) == 3      # 112^3 at depth 5, 2 ranks
     cfg = W.scenario_config()
     model = build_model(cfg, "cpu")
-    set_spatial_group(model, object())  # the guard raises before any use
-    with pytest.raises(ValueError, match=r"slab of 6 rows .* 2\^2=4"):
-        model(torch.zeros(1, 6, 8, 8, 1))
+    two = HybridMesh(None, None, None, 0, 1, 2, torch.device("cpu"))
+    SpatialPredictor(model, cfg, two)._check_shape((12, 8, 8))
     mesh = HybridMesh(None, None, None, 3, 2, 2, torch.device("cpu"))
     assert (mesh.data_rank, mesh.spatial_rank, mesh.size) == (1, 1, 4)
     with pytest.raises(ValueError, match=r"array dim 0 \(size 3\) not "

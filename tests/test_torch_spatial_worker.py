@@ -11,7 +11,8 @@ rate 1 (the parameter change is minus the gradient, so the comparison is
 linear in it) and two eval steps (all samples, and the first
 ``n_valid``). On 2 ranks the worker also checks ``halo_exchange`` and the
 conv blocks on slabs against whole tensors, and predicts with the spatial
-predictor. Rank r writes ``WORK_DIR/rank<r>_of<WORLD>.pt``. Imports nothing
+predictor. Every world also predicts a ``RESHARD`` volume whose slabs go
+odd before the last halving. Rank r writes ``WORK_DIR/rank<r>_of<WORLD>.pt``. Imports nothing
 of JAX. It holds no test of its own: ``tests/test_torch_spatial.py`` runs it
 and reads what it wrote.
 """
@@ -41,6 +42,9 @@ from fetal_mri_segmentation_tpu_torch.training.train_step import (
 GLOBAL_BATCH = 4
 PATCH = (16, 8, 8)
 
+# a patch depth whose slab goes odd on 2 ranks at depth 3 (6 -> 3 rows):
+# the models gather level 1 whole (models/layers.py::gather_level)
+RESHARD = (12, 8, 8)
 # name -> (config keys, n_valid of the global batch); all but dropout are
 # held to the JAX GSPMD step too (dropout draws other masks there)
 SCENARIOS = {
@@ -53,6 +57,11 @@ SCENARIOS = {
                          "dropout_rate": 0.0}, 3),
     "isensee_dropout": ({"model_name": "isensee", "n_segmentation_levels": 2,
                          "dropout_rate": 0.3}, 4),
+    "reshard": ({"patch_shape": RESHARD}, 4),
+    "reshard_batchnorm": ({"patch_shape": RESHARD,
+                           "batch_normalization": True}, 4),
+    "reshard_isensee": ({"patch_shape": RESHARD, "model_name": "isensee",
+                         "n_segmentation_levels": 2, "dropout_rate": 0.0}, 3),
 }
 JAX_SCENARIOS = [n for n, (kw, _) in SCENARIOS.items()
                  if not kw.get("dropout_rate")]
@@ -62,6 +71,10 @@ MESHES = {2: (1, 2), 4: (2, 2)}
 VOLUME = (16, 8, 8)
 PREDICTORS = {"unet": {}, "isensee": {"model_name": "isensee",
                                       "n_segmentation_levels": 2}}
+# the spatial predictor on a RESHARD volume: on 2 ranks (slabs of 6 -> 3,
+# level 1 gathered) and on a 1 x 4 mesh of the 4 ranks (slabs of 3, level 0
+# gathered, Isensee's level-1 head summed whole and cut)
+RESHARD_MESHES = {2: (1, 2), 4: (1, 4)}
 
 
 def scenario_config(cls=Config, **kw):
@@ -79,9 +92,9 @@ def scenario_batch(name):
     padded tail is zero. The truth differs along the depth, so every slab
     holds some of it."""
     seed = sorted(SCENARIOS).index(name)
-    n_valid = SCENARIOS[name][1]
+    kw, n_valid = SCENARIOS[name]
     rng = np.random.default_rng(seed)
-    shape = (GLOBAL_BATCH, 1) + PATCH
+    shape = (GLOBAL_BATCH, 1) + kw.get("patch_shape", PATCH)
     y = np.zeros(shape, np.float32)
     y[:, :, 3:13, 2:6, 2:6] = 1.0
     y[1, :, 1:3] = 1.0
@@ -92,9 +105,9 @@ def scenario_batch(name):
     return x, y, n_valid
 
 
-def volume(seed=7):
+def volume(seed=7, shape=VOLUME):
     return np.random.default_rng(seed).normal(
-        size=(1,) + VOLUME).astype(np.float32)
+        size=(1,) + shape).astype(np.float32)
 
 
 def _sgd_state(model):
@@ -234,20 +247,20 @@ def run_blocks(mesh):
     return out
 
 
-def run_predictor(mesh, work):
+def run_predictor(mesh, work, shape=VOLUME, ttas=(False, "flips")):
     """The spatial predictor on this mesh: probabilities plain and with
     flips TTA, and the label map, for the U-Net and Isensee2017 (its eval
     decoder is the fused form with no skip); the direct predictor's on the
     same weights, on one device in this process."""
     out = {}
-    vol = volume()
+    vol = volume(shape=shape)
     for name, kw in PREDICTORS.items():
         cfg = scenario_config(use_pallas_conv=True, use_pallas_dec0=True,
-                              **kw)
+                              image_shape=shape, **kw)
         model = build_model(cfg, "cpu")
         model.load_state_dict(torch.load(os.path.join(
             work, f"predict_{name}.init.pt")))
-        for tta in (False, "flips"):
+        for tta in ttas:
             spatial = make_spatial_predictor(model, cfg, mesh, tta=tta)
             direct = make_direct_predictor(model, cfg, tta=tta, device="cpu")
             out[(name, tta)] = dict(
@@ -269,6 +282,9 @@ def main(rank, world, port, work):
         if world == 2:
             out.update(halo=run_halo(mesh), blocks=run_blocks(mesh),
                        predictor=run_predictor(mesh, work))
+        out["reshard_predictor"] = run_predictor(
+            make_hybrid_mesh(*RESHARD_MESHES[world], device="cpu"), work,
+            RESHARD, ttas=(False,))
         torch.save(out, os.path.join(work, f"rank{rank}_of{world}.pt"))
     finally:
         shutdown_distributed()

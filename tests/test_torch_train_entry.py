@@ -237,7 +237,9 @@ def test_init_params_with_adam_moments_from_the_export_tool(runs, cases,
 
 
 @pytest.mark.parametrize("kw,flags,error,match", [
-    ({}, {"from_keras": "m.h5"}, NotImplementedError, "Keras interop"),
+    # --from-keras is ported (tests/test_torch_keras.py): it reads the
+    # file before any work, so a file that is not there raises first
+    ({}, {"from_keras": "m.h5"}, FileNotFoundError, "m.h5"),
     ({"spatial_devices": 2}, {}, SystemExit,
      r"spatial_devices=2 must divide the device count \(1\)"),
     ({"spatial_devices": 3, "num_devices": 4}, {}, SystemExit,
@@ -246,7 +248,8 @@ def test_init_params_with_adam_moments_from_the_export_tool(runs, cases,
      ValueError, "device_cache is not supported on spatial/hybrid meshes"),
 ])
 def test_refusals_by_name(cases, tmp_path, kw, flags, error, match):
-    """What the port still refuses, before any work: Keras interop; a
+    """What the port refuses before any work: a Keras ``.h5`` that is not
+    there (``--from-keras`` reads it first); a
     ``spatial_devices`` that does not divide the device count (the JAX
     ``train.py``'s exit); and, in ``train_model``, a device case cache on a
     spatial mesh, as the JAX loop does (``train.main`` keeps host staging

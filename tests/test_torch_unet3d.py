@@ -5,6 +5,10 @@ plain versions; the JAX side runs its Pallas kernels in interpret mode).
 Tolerance atol 2e-4 on probabilities and logits (fp32 sums in another
 order through every layer)."""
 
+import copy
+import threading
+import types
+
 import numpy as np
 import pytest
 
@@ -17,6 +21,8 @@ import jax.numpy as jnp  # noqa: E402
 from fetal_mri_segmentation_tpu.config import Config  # noqa: E402
 from fetal_mri_segmentation_tpu.models.unet3d import UNet3D as JaxUNet3D  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models import build_model  # noqa: E402
+from fetal_mri_segmentation_tpu_torch.models import layers  # noqa: E402
+from fetal_mri_segmentation_tpu_torch.parallel import collectives  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models.layers import (  # noqa: E402
     max_pool_3d, set_spatial_group)
 from fetal_mri_segmentation_tpu_torch.models.unet3d import UNet3D  # noqa: E402
@@ -93,25 +99,86 @@ def test_max_pool_drops_the_remainder_like_valid_pooling():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+class _ThreadRanks:
+    """N ranks as N threads of this process, for ``parallel/collectives.py``
+    in place of ``torch.distributed`` (:func:`_thread_dist`): each rank's
+    group is ``(this, rank)``; a gather meets at a barrier."""
+
+    def __init__(self, n):
+        self.n = n
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n, timeout=120)
+
+    def all_gather(self, rank, t):
+        self.slots[rank] = t.clone()
+        self.barrier.wait()
+        out = list(self.slots)
+        self.barrier.wait()
+        return out
+
+
+def _thread_dist():
+    def all_gather(parts, t, group):
+        for p, q in zip(parts, group[0].all_gather(group[1], t)):
+            p.copy_(q)
+
+    def all_reduce(t, op=None, group=None):
+        t.copy_(sum(group[0].all_gather(group[1], t)))
+
+    return types.SimpleNamespace(
+        get_rank=lambda group: group[1],
+        get_world_size=lambda group: group[0].n, all_gather=all_gather,
+        all_reduce=all_reduce, ReduceOp=torch.distributed.ReduceOp)
+
+
 @pytest.mark.parametrize("kw,rows,error,match", [
-    ({"spatial_devices": 4}, 4, ValueError, r"slab of 4 rows .* 2\^3=8"),
-    ({"spatial_devices": 2}, 6, ValueError, r"slab of 6 rows .* 2\^3=8"),
+    ({"spatial_devices": 4, "n_base_filters": 8,
+      "compute_dtype": "float32"}, 4, None, 2),
+    ({"spatial_devices": 2, "depth": 3, "n_base_filters": 8,
+      "compute_dtype": "float32"}, 6, None, 1),
     ({"fold_level0": (1, 1, 2)}, None, ValueError, "fold_level0"),
 ])
-def test_build_model_refuses_what_is_not_ported(kw, rows, error, match):
+def test_build_model_refuses_what_is_not_ported(monkeypatch, kw, rows,
+                                                error, match):
     """A fold tuple is refused at build time. A spatial mesh is ported and
-    builds; what is refused is a depth slab that does not stay even at
-    every level (the port's slab-depth guard), at the first forward on a
-    model made depth-sharded."""
-    if rows is None:
+    builds, and a depth slab that goes odd before the last halving is run
+    as XLA reshards it: the level ``match``, where the slab is odd, is
+    gathered whole. Here N ranks run as threads of this process through the
+    port's own collectives (:func:`_thread_dist`); each rank's rows equal
+    its rows of the whole volume's forward within ``ATOL``."""
+    if error is not None:
         with pytest.raises(error, match=match):
             build_model(Config(**kw), "cpu")
-    else:
-        model = build_model(Config(**kw), "cpu")
-        assert isinstance(model, UNet3D)
-        set_spatial_group(model, object())  # raises before any collective
-        with pytest.raises(error, match=match):
-            model(torch.zeros(1, rows, 16, 16, 1))
+        return
+    n = kw["spatial_devices"]
+    model = build_model(Config(**kw), "cpu")
+    assert isinstance(model, UNet3D)
+    assert layers.gather_level(rows, model.depth - 1) == match
+    monkeypatch.setattr(collectives, "dist", _thread_dist())
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, n * rows, 16, 16, 1)).astype(np.float32))
+    with torch.inference_mode():
+        want = model(x)
+    ranks, got, errors = _ThreadRanks(n), [None] * n, []
+
+    def run(rank):
+        try:
+            replica = copy.deepcopy(model)
+            set_spatial_group(replica, (ranks, rank))
+            with torch.inference_mode():
+                got[rank] = replica(x[:, rank * rows:(rank + 1) * rows])
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+            ranks.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    np.testing.assert_allclose(torch.cat(got, 1).numpy(), want.numpy(),
+                               atol=ATOL)
     # a data-parallel device count is ported and builds
     build_model(Config(num_devices=4, depth=2, n_base_filters=8), "cpu")
 

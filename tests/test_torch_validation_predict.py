@@ -287,17 +287,33 @@ def test_run_validation_case_and_names_without_subject_ids(experiment,
     ({"spatial_mesh": HybridMesh(None, None, None, 0, 1, 5,
                                  torch.device("cpu"))},
      "volume depth 24 not divisible by the mesh's 5 spatial shards"),
+    # slabs of 6 rows that go odd at level 1: accepted, as JAX accepts
+    # them (the models gather that level; tests/test_torch_spatial.py runs
+    # it on ranks); a mesh view with no group predicts whole volumes
     ({"spatial_mesh": HybridMesh(None, None, None, 0, 1, 4,
-                                 torch.device("cpu"))},
-     "a depth slab of 6 rows per spatial rank is not a multiple of 2\\^2")])
+                                 torch.device("cpu"))}, None)])
 def test_more_than_one_device_raises_by_name(experiment, tmp_path, kw, match):
     """More than one device is ported (``tests/test_torch_sharded_predict.py``
     runs both meshes on two ranks); what still raises, before any case is
-    read or written: both meshes at once, a volume depth that does not
-    split over the spatial ranks (JAX's messages), and a slab that does not
-    survive the model's halvings (the port's slab-depth guard)."""
+    read or written: both meshes at once and a volume depth that does not
+    split over the spatial ranks (JAX's messages). A slab that goes odd
+    before the last halving is predicted, equal to the direct predictor."""
     _, _, cfg, _, _, model = experiment
     with open_data_file(cfg.data_file) as data_file:
+        if match is None:
+            run_validation_cases(cfg.validation_file, model, data_file, cfg,
+                                 output_dir=str(tmp_path / "o"), device="cpu",
+                                 **kw)
+            run_validation_cases(cfg.validation_file, model, data_file, cfg,
+                                 output_dir=str(tmp_path / "direct"),
+                                 direct=True, device="cpu")
+            got, want = _tree(tmp_path / "o"), _tree(tmp_path / "direct")
+            assert sorted(got) == sorted(want) and len(got) == 3
+            for case, files in want.items():
+                for f, img in files.items():
+                    np.testing.assert_array_equal(got[case][f].get_fdata(),
+                                                  img.get_fdata())
+            return
         with pytest.raises(ValueError, match=match):
             run_validation_cases(cfg.validation_file, model, data_file, cfg,
                                  output_dir=str(tmp_path / "o"), device="cpu",
