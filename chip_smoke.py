@@ -124,7 +124,29 @@ Phases, one line each (or one line per checked shape):
    ones against the switches off, launches exactly the live path's per
    forward (none for a portable program), seconds per case and to load;
    and the host time of one launch through the public wrapper, the custom
-   op alone and the ctypes launch alone.
+   op alone and the ctypes launch alone;
+12. fold: space-to-depth folding of the full-resolution level at full
+   width, kernel switches on, bf16, weights from seed 0. The U-Net with
+   each of ``FOLD_SETTINGS`` against the same weights unfolded, through
+   the direct predictor and the sliding window on the three cases
+   (probabilities within ``REL_TOL`` / ``ABS_TOL`` of their scale, the
+   label agreement, no flip away from 0.5, launches exactly
+   ``FOLD_PER_FORWARD`` per forward: the folded level-0 convs are stock
+   convs), each forward's milliseconds beside the unfolded one's (switches
+   on and off); the fused decoder's input-dilated form under
+   ``decoder_form_override("dilated")`` against the parity form, switches
+   off, both timed; Isensee2017 folded (1, 1, 2) dense against unfolded (a
+   forward within ``NORM_PROB_TOL``, one train step's gradients each held
+   to an fp32 model's); the U-Net's train step folded against unfolded
+   (gradients within ``GRAD_REL_TOL``, both timed); ``train.main`` for one
+   epoch with the fold, ``predict.main --direct`` from its checkpoint, and
+   ``predict --export`` of the fold config, whose loaded program must be
+   the unfolded program;
+13. native: the host library (``utils/native.py``) must build from the
+   port's ``native/fastloader.cpp`` and load; each entry point against
+   numpy on a 160 x 160 x 110 case, with host microseconds; host-staged
+   ``train_model`` patches/s with the library and with
+   ``FETAL_TPU_NO_NATIVE=1``.
 
 The kernel phase also checks every kernel layer of the direct 128^3
 forward at batch 1 and at the TTA chunks of 2 and 8, and the spatial
@@ -352,6 +374,39 @@ HALO_CONV_SHAPES += [
      2 * n, ci, co) for entry, layer, n, ci, co, *_ in ISENSEE_LAYERS]
 ACTIVATION.update({shape[1]: "none" for shape in HALO_CONV_SHAPES
                    if shape[1].startswith("halo-isensee")})
+ACTIVATION["fold-dense isensee enc0_ctx"] = "none"
+# The fold phase: configs/fetal_unet.json with level 0 space-to-depth
+# folded (ops/fold.py) in each formulation, and fold (2, 2, 2). A folded
+# level runs its convs as stock folded convs and never takes a kernel
+# route, so a folded forward launches the unfolded forward's kernels less
+# those of level 0: enc0_conv2 and dec0_conv2 (conv3x3_flat) and
+# dec0_conv1 (the fused decoder).
+FOLD_SETTINGS = (((1, 1, 2), "dense"), ((1, 1, 2), "parity"),
+                 ((1, 1, 2), "parity_batched"), ((2, 2, 2), "parity"))
+FOLD_PER_FORWARD = {entry: sum(e == entry and layer[:3] in SLICE_LAYERS
+                               and layer[3] != "0"
+                               for e, layer, *_ in CONV_SHAPES)
+                    for entry in ("conv3x3", "conv3x3_flat")}
+FOLD_PER_FORWARD["up_concat_conv3x3_kernel"] = sum(
+    layer[:3] in SLICE_LAYERS and layer[3] != "0" for layer, *_ in DEC_SHAPES)
+# Isensee2017 with level 0 folded: enc0_ctx (twice) and dec0_loc1 (and in
+# training dec0_up at its shape) leave the kernels
+ISENSEE_FOLD_PER_FORWARD, ISENSEE_FOLD_PER_TRAIN = (
+    {entry: sum(row[col] for row in ISENSEE_LAYERS
+                if row[0] == entry and row[1][3] != "0")
+     for entry in ("conv3x3", "conv3x3_flat")} for col in (5, 6))
+ISENSEE_FOLD_PER_FORWARD["up_concat_conv3x3_kernel"] = 0
+ISENSEE_FOLD_PER_TRAIN["up_concat_conv3x3_kernel"] = 0
+# Not on any path: the dense folded (1, 1, 2) level-0 convs at the serving
+# batch, as the kernels would take them (a SAME 3^3 conv over the folded
+# grid with the dense-embedded kernel, C_in = 2 C, C_out = 2 C_out; C_in a
+# multiple of 128 to K1, else K2), timed beside cuDNN, for the
+# narrow-channel item of the kernel queue
+FOLD_DENSE_SHAPES = [
+    ("conv3x3_flat", "fold-dense enc0_conv2", B, 64, 64, 32, 64, 128),
+    ("conv3x3", "fold-dense dec0_conv2", B, 64, 64, 32, 128, 128),
+    ("conv3x3_flat", "fold-dense isensee enc0_ctx", B, 64, 64, 32, 32, 32),
+]
 KERNELS = {
     "conv3x3": ("fetal_mri_segmentation_tpu_torch/csrc/conv3x3.cu",
                 "fetal_mri_segmentation_tpu/ops/pallas_conv.py:43"),
@@ -1381,10 +1436,6 @@ def isensee_phase(torch, work: Path) -> dict:
                        if isinstance(m, ConvBlock) and m.norm_key}
         del model, state, step
 
-    def rel(a, b, scale=None):
-        return ((a - b).norm() / (b if scale is None else scale).norm()
-                ).item()
-
     # each gradient of the kernel route is held to the fp32 model's: within
     # GRAD_REL_TOL of it, or no further from it than twice the cuDNN bf16
     # path is (InstanceNorm over the 64 voxels of a 4^3 sample amplifies
@@ -1395,18 +1446,18 @@ def isensee_phase(torch, work: Path) -> dict:
         if n in before_norm:
             # held to the scale of its block's weight gradient
             scale = grads["fp32"][n[:-len("bias")] + "weight"]
-            r = max(rel(g_on, g32, scale), rel(g_off, g32, scale))
+            r = max(_rel(g_on, g32, scale), _rel(g_off, g32, scale))
             if not r <= worst_bias[1]:
                 worst_bias = (n, r)
             continue
         if not bool((g_on != 0).any()):
             zero.append(n)
-        r_on, r_off = rel(g_on, g32), rel(g_off, g32)
+        r_on, r_off = _rel(g_on, g32), _rel(g_off, g32)
         margin = r_on / max(2 * r_off, GRAD_REL_TOL)
         if worst[0] is None or not margin <= worst[1][0]:
             worst = (n, (margin, r_on, r_off))
-        if not rel(g_on, g_off) <= on_off[1]:
-            on_off = (n, rel(g_on, g_off))
+        if not _rel(g_on, g_off) <= on_off[1]:
+            on_off = (n, _rel(g_on, g_off))
     n, (margin, r_on, r_off) = worst
     print(f"isensee train grad check: {len(grads['on'])} parameter tensors "
           f"against the fp32 model's; worst {n}: relative L2 {r_on:.6g} "
@@ -3208,6 +3259,565 @@ def interop_phase(torch, work: Path) -> dict:
     return launches
 
 
+def _grads(torch, model, cfg, x, y):
+    """One train step of ``model`` from its weights on (x, y), augmentation
+    off, the step's generator seeded: ``(per-parameter fp32 gradients,
+    loss, launches)``."""
+    import dataclasses
+
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+
+    cfg = dataclasses.replace(cfg, augment=False)
+    step = make_train_step(
+        model, cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    metrics, launches = _counted(torch, lambda: step(
+        create_train_state(model, cfg), x, y))
+    return ({n: p.grad.float().clone() for n, p in model.named_parameters()},
+            float(metrics["loss"]), launches)
+
+
+def _rel(a, b, scale=None) -> float:
+    return ((a - b).norm() / (b if scale is None else scale).norm()).item()
+
+
+def fold_phase(torch, work: Path, smi: str) -> dict:
+    """Space-to-depth folding of the full-resolution level at full width,
+    kernel switches on, bf16, weights from seed 0: the U-Net
+    (``configs/fetal_unet.json``) in every ``FOLD_SETTINGS`` entry against
+    the same weights unfolded, through the direct predictor and the sliding
+    window on the three synthetic cases (probabilities within the kernel
+    check's REL_TOL / ABS_TOL of their scale, no label flip away from 0.5,
+    exactly ``FOLD_PER_FORWARD`` launches per forward), each forward's
+    milliseconds beside the unfolded one's; Isensee2017 folded (1, 1, 2)
+    dense, a forward and one train step against unfolded; the U-Net's train
+    step folded against unfolded (gradients within GRAD_REL_TOL, both
+    timed); ``train.main`` for one epoch on six cases with the fold, then
+    ``predict.main --direct`` from its checkpoint and ``predict --export``
+    of the fold config, whose loaded program must be the unfolded
+    program; the fused decoder's input-dilated form under
+    ``decoder_form_override("dilated")`` against the parity form, the
+    switches off, both timed. Returns the launches of each counted run."""
+    import dataclasses
+    import functools
+    import math
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch import predict as entry, train
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.data.build import open_data_file
+    from fetal_mri_segmentation_tpu_torch.inference.predict import (
+        preprocess_case)
+    from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
+        SlidingWindowPredictor)
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.models import layers
+    from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock
+    from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
+        make_direct_predictor)
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        get_number_of_patches, get_number_of_steps)
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+    from fetal_mri_segmentation_tpu_torch.utils.export import load_predictor
+    from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    torch.backends.cudnn.allow_tf32 = True  # as the train phase
+    config = dataclasses.replace(
+        Config.load(str(ROOT / "configs" / "fetal_unet.json")),
+        use_pallas_conv=True, use_pallas_dec0=True)
+    weights = from_flax(init_flax_like(config, seed=0))
+    inputs = write_cases(work / "cases")
+    volumes = [preprocess_case(path, config)[0] for path in inputs]
+    overlap = config.validation_patch_overlap
+    sliding_forwards = math.ceil(27 / B)  # 27 patches a case, batches of B
+    launches = {}
+
+    def built(cfg, state=weights):
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(state)
+        return model
+
+    def counted(label, forwards, run, table=FOLD_PER_FORWARD):
+        out, got = _counted(torch, run)
+        want = {k: n * forwards for k, n in table.items()}
+        if got != want:
+            raise AssertionError(f"fold {label}: launches {got}, not {want}")
+        launches[label] = got
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x_batch = torch.randn(B, 64, 64, 64, 1, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+    x_volume = torch.randn(1, 128, 128, 128, 1, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+
+    def forward_ms(model):
+        with torch.inference_mode():
+            return (time_ms(torch, lambda: model(x_batch)),
+                    time_ms(torch, lambda: model(x_volume)))
+
+    def agreement(tag, got, want, tol_of):
+        """max|diff|, its bound, label agreement and far flips over the
+        cases."""
+        diff = agree = far = 0.0
+        tol = 0.0
+        for p, q in zip(got, want):
+            tol = max(tol, tol_of(q))
+            diff = max(diff, (p - q).abs().max().item())
+            flipped = (p[0] > 0.5) != (q[0] > 0.5)
+            agree += 1 - flipped.float().mean().item()
+            far += int((flipped & ((q[0] - 0.5).abs() >= tol)).sum().item())
+        agree /= len(got)
+        print(f"fold {tag}: max|p - p_ref| {diff:.6g} <= tol {tol:.6g}; "
+              f"labels agree on {agree:.8f} of the voxels, {int(far)} "
+              f"flips with |p - 0.5| >= tol ({smi})", flush=True)
+        if not diff <= tol or far:
+            raise AssertionError(f"fold {tag}: {diff} > {tol} or {far} far "
+                                 "flips")
+
+    def kernel_tol(ref):
+        return REL_TOL * ref.abs().max().item() + ABS_TOL
+
+    # 1. the U-Net folded in each setting against the same weights unfolded
+    reference = built(config)
+    refs = {"direct": [make_direct_predictor(reference, config)
+                       .predict_probabilities(v) for v in volumes],
+            "sliding": [SlidingWindowPredictor(
+                reference, config, config.image_shape, overlap=overlap,
+                patch_batch_size=B).predict_probabilities(v)
+                for v in volumes]}
+    times = {"unfolded, kernels on": forward_ms(reference)}
+    del reference
+    for factors, form in FOLD_SETTINGS:
+        tag = f"{factors} {form}"
+        cfg = dataclasses.replace(config, fold_level0=factors,
+                                  fold_formulation=form)
+        model = built(cfg)
+        predictors = {
+            "direct": (make_direct_predictor(model, cfg), 1),
+            "sliding": (SlidingWindowPredictor(
+                model, cfg, cfg.image_shape, overlap=overlap,
+                patch_batch_size=B), sliding_forwards)}
+        for mode, (predictor, forwards) in predictors.items():
+            probs = counted(f"{tag} {mode}", forwards * len(volumes),
+                            lambda: [predictor.predict_probabilities(v)
+                                     for v in volumes])
+            if not all(bool(torch.isfinite(p).all()) for p in probs):
+                raise AssertionError(f"fold {tag} {mode}: non-finite")
+            agreement(f"{tag} {mode} against unfolded", probs, refs[mode],
+                      kernel_tol)
+        times[tag] = forward_ms(model)
+        del model, predictors
+        torch.cuda.empty_cache()
+    print(f"fold forward ms ({smi}): " + "; ".join(
+        f"{k}: batch of {B} x 64^3 {a:.6g}, 128^3 {b:.6g}"
+        for k, (a, b) in times.items()), flush=True)
+    off = dataclasses.replace(config, use_pallas_conv=False,
+                              use_pallas_dec0=False)
+    off_model = built(off)
+    times["unfolded, kernels off"] = forward_ms(off_model)
+    fold_off = built(dataclasses.replace(off, fold_level0=(1, 1, 2)))
+    times["(1, 1, 2) dense, kernels off"] = forward_ms(fold_off)
+    del fold_off
+    print(f"fold forward ms, switches off ({smi}): " + "; ".join(
+        f"{k}: {a:.6g}, {b:.6g}" for k, (a, b) in times.items()
+        if k.endswith("off")), flush=True)
+    dense_stats = {}
+    for entry_name, layer, *shape in FOLD_DENSE_SHAPES:
+        conv_case(torch, gen, dense_stats, 1, entry_name, layer, *shape)
+    summarize(dense_stats, f"fold, the dense folded level 0 on K2 (not on "
+                           f"the path; {smi})")
+
+    # 2. the fused decoder's two plain forms, switches off (no kernel takes
+    # the decoder): the same forward through each, both timed
+    forms = {}
+    calls = []
+    real = layers.up_concat_conv3x3_dilated
+    layers.up_concat_conv3x3_dilated = lambda *a: (calls.append(1),
+                                                   real(*a))[1]
+    try:
+        for form in ("parity", "dilated"):
+            with layers.decoder_form_override(form), torch.inference_mode():
+                calls.clear()
+                out = [off_model(x) for x in (x_batch, x_volume)]
+                taken = len(calls)
+                ms = forward_ms(off_model)
+            forms[form] = (out, taken, ms)
+    finally:
+        layers.up_concat_conv3x3_dilated = real
+    for form, (out, taken, ms) in forms.items():
+        # three fused decoder blocks per forward, two forwards
+        want_taken = (2 * PER_FORWARD["up_concat_conv3x3_kernel"]
+                      if form == "dilated" else 0)
+        diffs = [(a - b).abs().max().item()
+                 for a, b in zip(out, forms["parity"][0])]
+        print(f"fold decoder form {form} (switches off): {taken} dilated "
+              f"decoder calls over two forwards (want {want_taken}); "
+              f"max|p - p_parity| {max(diffs):.6g} <= tol {PROB_TOL}; "
+              f"forward ms batch of {B} x 64^3 {ms[0]:.6g}, 128^3 "
+              f"{ms[1]:.6g} ({smi})", flush=True)
+        if taken != want_taken or not max(diffs) <= PROB_TOL:
+            raise AssertionError(f"decoder form {form}: {taken} calls, "
+                                 f"{diffs}")
+    del off_model, forms
+    torch.cuda.empty_cache()
+
+    # 3. Isensee2017 folded (1, 1, 2) dense: a forward and one train step
+    # against unfolded, from the same weights; each bf16 path's gradients
+    # held to an fp32 model's, as the isensee phase holds the kernels
+    isensee = _isensee_config()
+    i_weights = from_flax(init_flax_like(isensee, seed=0))
+    i_fold = dataclasses.replace(isensee, fold_level0=(1, 1, 2),
+                                 fold_formulation="dense")
+    i_ref = [make_direct_predictor(built(isensee, i_weights), isensee)
+             .predict_probabilities(v) for v in volumes]
+    model = built(i_fold, i_weights)
+    probs = counted("isensee direct", len(volumes), lambda: [
+        make_direct_predictor(model, i_fold).predict_probabilities(v)
+        for v in volumes], ISENSEE_FOLD_PER_FORWARD)
+    agreement("isensee (1, 1, 2) dense direct against unfolded", probs,
+              i_ref, lambda ref: NORM_PROB_TOL)
+    x_np, y_np = train_batch(isensee)
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    grads, losses = {}, {}
+    i_32 = dataclasses.replace(isensee, use_pallas_conv=False,
+                               use_pallas_dec0=False,
+                               compute_dtype="float32")
+    for name, cfg, want in (
+            ("fold", i_fold, ISENSEE_FOLD_PER_TRAIN),
+            ("unfolded", isensee, ISENSEE_PER_TRAIN),
+            ("fp32", i_32, dict.fromkeys(ISENSEE_PER_TRAIN, 0))):
+        torch.backends.cudnn.allow_tf32 = name != "fp32"
+        model = built(cfg, i_weights)
+        grads[name], losses[name], got = _grads(torch, model, cfg, x, y)
+        torch.backends.cudnn.allow_tf32 = True
+        if got != want:
+            raise AssertionError(f"isensee train step {name}: launches "
+                                 f"{got}, not {want}")
+        launches[f"isensee train step {name}"] = got
+        before_norm = {f"{n}.conv.bias" for n, m in model.named_modules()
+                       if isinstance(m, ConvBlock) and m.norm_key}
+        del model
+    worst, worst_bias, direct = (None, (0.0, 0.0, 0.0)), (None, 0.0), (
+        None, 0.0)
+    for n, g32 in grads["fp32"].items():
+        g_fold, g_plain = grads["fold"][n], grads["unfolded"][n]
+        if n in before_norm:  # rounding only: held to its weight's scale
+            scale = grads["fp32"][n[:-len("bias")] + "weight"]
+            r = max(_rel(g_fold, g32, scale), _rel(g_plain, g32, scale))
+            if not r <= worst_bias[1]:
+                worst_bias = (n, r)
+            continue
+        r_fold, r_plain = _rel(g_fold, g32), _rel(g_plain, g32)
+        margin = r_fold / max(2 * r_plain, GRAD_REL_TOL)
+        if worst[0] is None or not margin <= worst[1][0]:
+            worst = (n, (margin, r_fold, r_plain))
+        if not _rel(g_fold, g_plain) <= direct[1]:
+            direct = (n, _rel(g_fold, g_plain))
+    n, (margin, r_fold, r_plain) = worst
+    print(f"fold isensee train grad check: against the fp32 model, worst "
+          f"{n}: relative L2 {r_fold:.6g} folded, {r_plain:.6g} unfolded "
+          f"(bound max(2 x {r_plain:.6g}, {GRAD_REL_TOL})); folded against "
+          f"unfolded at most {direct[1]:.6g} ({direct[0]}); conv biases "
+          f"before a norm within {worst_bias[1]:.6g} of their weight "
+          f"gradient's norm; loss {losses['fold']:.6g} folded, "
+          f"{losses['unfolded']:.6g} unfolded, {losses['fp32']:.6g} fp32; "
+          f"launches {launches['isensee train step fold']} ({smi})",
+          flush=True)
+    if not (margin <= 1 and worst_bias[1] <= GRAD_REL_TOL and abs(
+            losses["fold"] - losses["unfolded"]) <= LOSS_TOL):
+        raise AssertionError(f"isensee fold gradients: {worst}, "
+                             f"{worst_bias}, {losses}")
+    del grads
+    torch.cuda.empty_cache()
+
+    # 4. the U-Net's train step folded (1, 1, 2) dense against unfolded:
+    # gradients, loss and the step's milliseconds
+    x_np, y_np = train_batch(config)
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    u_fold = dataclasses.replace(config, fold_level0=(1, 1, 2),
+                                 fold_formulation="dense")
+    grads, losses, steps = {}, {}, {}
+    for name, cfg, want in (("fold", u_fold, FOLD_PER_FORWARD),
+                            ("unfolded", config, PER_FORWARD)):
+        model = built(cfg)
+        grads[name], losses[name], got = _grads(torch, model, cfg, x, y)
+        if got != want:
+            raise AssertionError(f"unet train step {name}: launches {got}")
+        launches[f"unet train step {name}"] = got
+        state = create_train_state(model, cfg)
+        steps[name] = functools.partial(make_train_step(
+            model, cfg, generator=torch.Generator(device="cuda").manual_seed(
+                0)), state, x, y)
+    # the two steps timed in turns: fold, unfolded, unfolded, fold
+    step_ms = {name: [] for name in steps}
+    for name in ("fold", "unfolded", "unfolded", "fold"):
+        step_ms[name].append(time_ms(torch, steps[name]))
+    del steps
+    torch.cuda.empty_cache()
+    worst = max((_rel(grads["fold"][n], g), n)
+                for n, g in grads["unfolded"].items())
+    print(f"fold unet train step (1, 1, 2) dense: largest relative L2 "
+          f"gradient difference against unfolded {worst[0]:.6g} ({worst[1]}) "
+          f"<= tol {GRAD_REL_TOL}; loss {losses['fold']:.6g} against "
+          f"{losses['unfolded']:.6g}; step of {config.batch_size}x"
+          f"{tuple(config.patch_shape)} with augmentation, in turns: "
+          f"folded {', '.join(f'{v:.6g}' for v in step_ms['fold'])} ms, "
+          f"unfolded {', '.join(f'{v:.6g}' for v in step_ms['unfolded'])} "
+          f"ms ({smi})", flush=True)
+    if not (worst[0] <= GRAD_REL_TOL and abs(
+            losses["fold"] - losses["unfolded"]) <= LOSS_TOL):
+        raise AssertionError(f"unet fold gradients: {worst}, {losses}")
+    del grads
+
+    # 5. the entries: train.main for one epoch with the fold on six cases,
+    # predict.main --direct from its checkpoint, and predict --export of
+    # the fold config against the unfolded config's artifact
+    run_cfg = dataclasses.replace(
+        u_fold, n_epochs=1, initial_learning_rate=EXPERIMENT_LR,
+        data_file=str(work / "fetal_data"),
+        model_file=str(work / "fetal_unet.ckpt"),
+        training_file=str(work / "training_ids.pkl"),
+        validation_file=str(work / "validation_ids.pkl"),
+        training_log=str(work / "training.log"))
+    write_cases(work / "cases6", n=6)
+    t0 = time.perf_counter()
+    state, got = _counted(torch, lambda: train.main(
+        run_cfg, str(work / "cases6"), seed=0, verbose=False,
+        device="cuda"))
+    train_s = time.perf_counter() - t0
+    steps = state.step
+    with open_data_file(run_cfg.data_file) as data_file:
+        n_v = get_number_of_steps(get_number_of_patches(
+            data_file, pickle_load(run_cfg.validation_file),
+            run_cfg.patch_shape,
+            patch_overlap=run_cfg.validation_patch_overlap,
+            skip_blank=run_cfg.skip_blank), run_cfg.validation_batch_size)
+    # one forward per train and per validation step
+    want = {k: v * (steps + n_v) for k, v in FOLD_PER_FORWARD.items()}
+    if steps <= 0 or got != want:
+        raise AssertionError(f"train.main with fold: {steps} + {n_v} "
+                             f"steps, launches {got}, not {want}")
+    launches["train.main"] = got
+    del state
+    out = work / "prediction"
+    n, got = _counted(torch, lambda: entry.main(
+        run_cfg, output_dir=str(out), direct=True, device="cuda",
+        verbose=False))
+    want = {k: v * n for k, v in FOLD_PER_FORWARD.items()}
+    if not n or got != want:
+        raise AssertionError(f"predict.main --direct with fold: {n} cases, "
+                             f"launches {got}")
+    launches["predict.main direct"] = got
+    programs = {}
+    for tag, cfg in (("fold", run_cfg),
+                     ("unfolded", dataclasses.replace(run_cfg,
+                                                      fold_level0="off"))):
+        path = str(work / f"{tag}.fetal")
+        entry.main(cfg, export_path=path, direct=True, device="cuda",
+                   verbose=False)
+        predict = load_predictor(path, device="cuda")
+        programs[tag] = (predict.program.code,
+                         [predict(v) for v in volumes])
+    same_code = programs["fold"][0] == programs["unfolded"][0]
+    same_labels = all(np.array_equal(a, b) for a, b in zip(
+        programs["fold"][1], programs["unfolded"][1]))
+    print(f"fold entries: train.main one epoch with fold (1, 1, 2) dense, "
+          f"{steps} steps, {train_s:.4f} s, launches "
+          f"{launches['train.main']}; predict.main --direct {n} validation "
+          f"cases, launches {launches['predict.main direct']}; predict "
+          f"--export of the fold config: the program's code equals the "
+          f"unfolded one's: {same_code}, labels equal on "
+          f"{len(volumes)} cases: {same_labels} ({smi})", flush=True)
+    if not (same_code and same_labels):
+        raise AssertionError("the fold config's artifact is not the "
+                             "unfolded program")
+    return launches
+
+
+NATIVE_REPEATS = 20
+
+
+def native_phase(torch, work: Path, smi: str) -> dict:
+    """The native host library (``utils/native.py``, built from the port's
+    ``native/fastloader.cpp`` with the system C++ compiler): it must build
+    and load; each entry point against numpy on a 160 x 160 x 110 case
+    (patch copies bit for bit, the weighted overlap-add within 1e-5, the
+    blank check and one-hot equal), with host microseconds for each; then
+    ``train_model``'s patches/s over one host-staged epoch with the library
+    and with ``FETAL_TPU_NO_NATIVE=1``, twice each in turns (native, numpy,
+    numpy, native) after one warm-up epoch, with the library's patch
+    copies counted. Returns the launches of the epochs."""
+    import csv
+    import dataclasses
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.data.memory import InMemoryDataFile
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.ops import patches
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        get_training_and_validation_generators)
+    from fetal_mri_segmentation_tpu_torch.training.loop import train_model
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.utils import native
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    t0 = time.perf_counter()
+    path = native.build()
+    if not native.available():
+        raise AssertionError("the native library built but did not load")
+    print(f"native: {path.name} from {native.SOURCE.name} by "
+          f"{native.compiler()} in {time.perf_counter() - t0:.4f} s",
+          flush=True)
+    cases = write_cases(work / "cases")
+    vol = np.asarray(load_nifti(str(Path(cases[0]) / "volume.nii.gz"))
+                     .get_fdata(), np.float32)[None].copy()
+    patch = (64, 64, 64)
+
+    def numpy_patch(corner):
+        os.environ["FETAL_TPU_NO_NATIVE"] = "1"
+        try:
+            return np.array(patches.get_patch_from_3d_data(vol, patch,
+                                                           corner))
+        finally:
+            del os.environ["FETAL_TPU_NO_NATIVE"]
+
+    def host_us(fn):
+        fn()
+        t = time.perf_counter()
+        for _ in range(NATIVE_REPEATS):
+            fn()
+        return (time.perf_counter() - t) / NATIVE_REPEATS * 1e6
+
+    corners = np.array([(0, 0, 0), (-16, -16, -16), (48, 48, 23),
+                        (100, 100, 50), (150, 150, 100), (-70, 0, 0)],
+                       np.int64)
+    for c in corners:
+        got = native.extract_patch(vol, patch, c)
+        if not np.array_equal(got, numpy_patch(c)):
+            raise AssertionError(f"extract_patch at {tuple(c)} differs")
+    batch = native.extract_patches_batch(vol, patch, corners)
+    if not np.array_equal(batch, np.stack([numpy_patch(c)
+                                           for c in corners])):
+        raise AssertionError("extract_patches_batch differs")
+    grid = patches.compute_patch_indices(vol.shape[1:], patch, 16)
+    weight = patches.gaussian_importance_map(patch)
+    rng = np.random.default_rng(0)
+    preds = rng.random((len(grid), 1) + patch).astype(np.float32)
+    acc = np.zeros(vol.shape, np.float32)
+    wsum = np.zeros(vol.shape[1:], np.float32)
+    acc_np, wsum_np = acc.copy(), wsum.copy()
+    for p, c in zip(preds, grid):
+        native.overlap_add(acc, wsum, p, weight, c)
+        lo = np.maximum(c, 0)
+        hi = np.minimum(c + patch, vol.shape[1:])
+        dst = tuple(slice(a, b) for a, b in zip(lo, hi))
+        src = tuple(slice(a - i, b - i) for a, b, i in zip(lo, hi, c))
+        acc_np[(slice(None),) + dst] += p[(slice(None),) + src] * weight[src]
+        wsum_np[dst] += weight[src]
+    oa_err = max(np.abs(acc - acc_np).max(), np.abs(wsum - wsum_np).max())
+    blank = np.zeros_like(vol)
+    labels = np.array([1.0], np.float64)
+    truth = (vol[0] > 1).astype(np.float32)
+    hot = np.empty((1, truth.size), np.float32)
+    native._load().one_hot_f32(truth.reshape(-1), hot, labels, 1, truth.size)
+    checks = (np.array_equal(hot[0], truth.reshape(-1) == 1.0)
+              and native.any_nonzero(vol) is True
+              and native.any_nonzero(blank) is False)
+    times = {
+        "extract_patch": (host_us(lambda: native.extract_patch(
+            vol, patch, corners[2])), host_us(lambda: numpy_patch(
+                corners[2]))),
+        "extract_patch at the border": (host_us(
+            lambda: native.extract_patch(vol, patch, corners[1])),
+            host_us(lambda: numpy_patch(corners[1]))),
+        "any_nonzero (blank)": (host_us(lambda: native.any_nonzero(blank)),
+                                host_us(lambda: bool(np.any(blank))))}
+    print(f"native entry points on a {vol.shape[1:]} case: {len(corners)} "
+          f"patch copies and one batch of them equal numpy bit for bit; "
+          f"overlap-add of {len(grid)} patches within {oa_err:.3g} of "
+          f"numpy (<= 1e-5); one-hot and blank checks equal: {checks}; host "
+          f"us native / numpy: " + ", ".join(
+              f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in times.items())
+          + f" ({smi})", flush=True)
+    if not (oa_err <= 1e-5 and checks):
+        raise AssertionError(f"native overlap-add {oa_err}, checks {checks}")
+
+    # train_model's patches/s, host-staged, with the library and without
+    config = dataclasses.replace(
+        Config.load(str(ROOT / "configs" / "fetal_unet.json")),
+        use_pallas_conv=True, use_pallas_dec0=True, n_epochs=1,
+        device_case_cache="off", overwrite=False,
+        training_file=str(work / "training_ids.pkl"),
+        validation_file=str(work / "validation_ids.pkl"))
+    data_file = InMemoryDataFile.from_cases(cases, config)
+    weights = from_flax(init_flax_like(config, seed=0))
+    copies = []
+    real = native.extract_patch
+    native.extract_patch = lambda *a: (copies.append(1), real(*a))[1]
+    rates, launches = {}, {}
+    try:
+        for i, mode in enumerate(("warm-up", "native", "numpy", "numpy",
+                                  "native")):
+            # each run its own checkpoint and log (an existing checkpoint
+            # would be resumed)
+            run_cfg = dataclasses.replace(
+                config, model_file=str(work / f"model{i}.pt"),
+                training_log=str(work / f"training{i}.log"))
+            if mode == "numpy":
+                os.environ["FETAL_TPU_NO_NATIVE"] = "1"
+            copies.clear()
+            tg, n_t, vg, n_v = get_training_and_validation_generators(
+                data_file, batch_size=config.batch_size, n_labels=1,
+                training_keys_file=config.training_file,
+                validation_keys_file=config.validation_file,
+                data_split=config.validation_split, overwrite=i == 0,
+                labels=config.labels, patch_shape=config.patch_shape,
+                validation_batch_size=config.validation_batch_size,
+                validation_patch_overlap=config.validation_patch_overlap,
+                training_patch_start_offset=(
+                    config.training_patch_start_offset),
+                skip_blank=config.skip_blank, seed=0)
+            model = build_model(config, "cuda")
+            model.load_state_dict(weights)
+            _, got = _counted(torch, lambda: train_model(
+                model, create_train_state(model, run_cfg), run_cfg, tg, vg,
+                n_t, n_v, seed=0, verbose=False))
+            os.environ.pop("FETAL_TPU_NO_NATIVE", None)
+            want = {k: v * (n_t + n_v) for k, v in PER_FORWARD.items()}
+            if got != want or bool(copies) != (mode != "numpy"):
+                raise AssertionError(f"native epoch {i} ({mode}): launches "
+                                     f"{got}, {len(copies)} native copies")
+            launches[f"train_model {mode} {i}"] = got
+            with open(run_cfg.training_log) as f:
+                row = list(csv.DictReader(f))[-1]
+            rates.setdefault(mode, []).append(
+                (float(row["patches_per_sec"]), len(copies)))
+            del model
+    finally:
+        native.extract_patch = real
+        os.environ.pop("FETAL_TPU_NO_NATIVE", None)
+    print(f"native train_model, host-staged, one epoch of {n_t} + {n_v} "
+          f"steps each, in turns: patches/s " + "; ".join(
+              f"{mode} " + ", ".join(f"{r:.6g} ({c} native copies)"
+                                     for r, c in runs)
+              for mode, runs in rates.items()) + f" ({smi})", flush=True)
+    return launches
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -3255,14 +3865,18 @@ def main() -> None:
                             t, w, smi.splitlines()[0])),
                         ("spatial", lambda t, w: spatial_phase(
                             t, w, smi.splitlines()[0])),
-                        ("interop", interop_phase)):
+                        ("interop", interop_phase),
+                        ("fold", lambda t, w: fold_phase(
+                            t, w, smi.splitlines()[0])),
+                        ("native", lambda t, w: native_phase(
+                            t, w, smi.splitlines()[0]))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as work:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
     (launches, train_launches, serve_launches, isensee, experiment,
-     scale, spatial, interop) = results.values()
+     scale, spatial, interop, fold, native_launches) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -3284,6 +3898,10 @@ def main() -> None:
                                      in spatial.items()},
                 "export_launches": {path: counts[name] for path, counts
                                     in interop.items()},
+                "fold_launches": {path: counts[name] for path, counts
+                                  in fold.items()},
+                "native_launches": {path: counts[name] for path, counts
+                                    in native_launches.items()},
                 "halo_forward": halo_stats[name],
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]

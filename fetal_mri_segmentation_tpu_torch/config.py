@@ -7,8 +7,8 @@ defaults and ``Config.load`` of every ``configs/*.json`` equal.
 Two keys change meaning on the card: ``use_pallas_conv`` selects the Hopper
 conv kernel (``ops/conv3x3.py``) and ``use_pallas_dec0`` the Hopper fused
 decoder kernel (``ops/dec0.py``). Both keep their names and their default
-of false. :func:`check_supported` refuses what the port does not run yet
-instead of ignoring it. The port's functions read a config's attributes
+of false. :func:`check_supported` refuses early what the JAX package's
+models refuse. The port's functions read a config's attributes
 only, so any object with these attributes (the JAX ``Config`` too) works.
 """
 
@@ -55,9 +55,9 @@ class Config:
     compute_dtype: str = "bfloat16"  # bf16 compute, fp32 params
     use_pallas_conv: bool = False  # the port: the Hopper conv kernel
     use_pallas_dec0: bool = False  # the port: the Hopper fused decoder kernel
-    fold_level0: Any = "auto"  # space-to-depth at the full-resolution level,
-        # a TPU layout lever: "auto"/"off"/None run unfolded in the port; an
-        # explicit [f1,f2,f3] (factors in {1,2}) is refused by check_supported
+    fold_level0: Any = "auto"  # space-to-depth at the full-resolution level:
+        # "auto"/"off"/None run unfolded in the port ("auto" folds on a TPU
+        # only); an explicit [f1,f2,f3] (factors in {1,2}) folds
     fold_formulation: str = "dense"  # "parity" | "parity_batched" | "dense"
     remat: bool = False  # rematerialize the forward in the backward pass
 
@@ -221,16 +221,21 @@ class Config:
 
 
 def check_supported(config) -> None:
-    """Raise for configuration the port does not implement.
+    """Raise, before a model or a dataset is built, for a configuration
+    whose model the JAX package refuses, with its message.
 
-    ``fold_level0`` "auto", None and "off" all mean no fold: the JAX
-    package folds only on a TPU (``models/layers.py::resolve_fold``), and
-    the fold is a layout lever for the TPU's conv emitter with the same
-    math as the plain path. An explicit fold tuple raises. ``num_devices``
-    above 1 (data-parallel training, ``parallel/data_parallel.py``) and
+    Every setting of the JAX ``Config`` is ported. ``fold_level0``: "auto",
+    None and "off" run unfolded in the port ("auto" folds on a TPU only,
+    ``models/layers.py::resolve_fold``); an explicit fold tuple folds the
+    full-resolution level in every formulation, and a U-Net fold without
+    the fused decoder, below depth 2 or with BatchNorm is refused
+    (``models/layers.py::check_unet_fold``). ``num_devices`` above 1
+    (data-parallel training, ``parallel/data_parallel.py``) and
     ``spatial_devices`` above 1 (depth-axis sharding on a hybrid mesh,
     ``parallel/spatial.py``) pass."""
-    if config.fold_level0 not in (None, "auto", "off"):
-        raise ValueError(
-            f"fold_level0={config.fold_level0!r}: space-to-depth folding is "
-            "a TPU layout lever and is not part of the port; use 'off'")
+    if config.model_name == "unet":
+        from fetal_mri_segmentation_tpu_torch.models.layers import (
+            check_unet_fold)
+
+        check_unet_fold(config.fold_level0, not config.deconvolution,
+                        config.depth, config.batch_normalization)

@@ -24,6 +24,10 @@ def build_model(config, device="cuda", bn_group=None):
     config with ``use_pallas_conv`` or ``use_pallas_dec0`` on raises. As in
     the JAX package, Isensee2017's blocks always carry InstanceNorm, and the
     config's norm and deconvolution keys shape the U-Net only.
+    ``fold_level0`` and ``fold_formulation`` pass through, as in the JAX
+    package: an explicit fold tuple folds the full-resolution level
+    (``models/layers.py::resolve_fold``), and a U-Net fold that the JAX
+    model refuses raises here with its message.
 
     ``bn_group``: the process group of the data mesh, for sync BatchNorm
     under data parallelism (the JAX ``build_model``'s ``bn_axis_name``)."""
@@ -40,7 +44,9 @@ def build_model(config, device="cuda", bn_group=None):
                   activation_name=config.activation_name, dtype=dtype,
                   use_kernel_conv=config.use_pallas_conv,
                   use_kernel_dec0=config.use_pallas_dec0,
-                  device=resolve_device(device), bn_group=bn_group)
+                  device=resolve_device(device), bn_group=bn_group,
+                  fold_level0=config.fold_level0,
+                  fold_formulation=config.fold_formulation)
     if config.model_name == "isensee":
         model = Isensee2017(
             dropout_rate=config.dropout_rate,

@@ -25,6 +25,14 @@ whole on every rank, run the coarser levels on it identically, with no halo
 and local norm statistics (the blocks' ``whole`` argument), and each rank
 keeps its own rows of that level's decoder output: what XLA's resharding
 does for the JAX package.
+
+Space-to-depth folding of the full-resolution level (``ops/fold.py``;
+``fold_level0`` in the config): :func:`resolve_fold` turns a model's
+setting into factors per forward, the conv blocks of level 0 run folded
+(``ConvBlock.forward``'s ``fold``), and :func:`fold_override` /
+:func:`decoder_form_override` pin the fold and the fused decoder's plain
+formulation, as the JAX package's trace-time overrides do. The parameter
+tree does not change.
 """
 
 from __future__ import annotations
@@ -40,7 +48,10 @@ from fetal_mri_segmentation_tpu_torch.ops.conv3x3 import (
     conv3x3_flat)
 from fetal_mri_segmentation_tpu_torch.ops.cuda_lib import cached
 from fetal_mri_segmentation_tpu_torch.ops.dec0 import (
-    dec0_available, up_concat_conv3x3, up_concat_conv3x3_kernel)
+    dec0_available, up_concat_conv3x3, up_concat_conv3x3_dilated,
+    up_concat_conv3x3_kernel)
+from fetal_mri_segmentation_tpu_torch.ops.fold import (
+    conv1_folded, conv3_folded, conv3_folded_stride2, up_conv3_folded)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
     all_gather_cat, all_reduce_sum_grad, halo_exchange, own_rows)
 
@@ -69,23 +80,47 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
-    def forward(self, x: torch.Tensor, whole: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, whole: bool = False,
+                fold: int = 1) -> torch.Tensor:
+        """``fold`` (F > 1): x is space-to-depth folded, (B, d, h, w, F*C)
+        sub-voxel-major (``ops/fold.py``), and the moments of each original
+        channel are taken over (d, h, w, sub-voxel): exactly the unfolded
+        volume's, since the fold permutes the same voxels."""
         xf = x.float()
+        if fold > 1:
+            xf = xf.reshape(*x.shape[:4], fold, x.shape[-1] // fold)
+        dims = tuple(range(1, xf.dim() - 1))
         if self.group is None or whole:
-            mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-            var = xf.var(dim=(1, 2, 3), correction=0, keepdim=True)
+            mean = xf.mean(dim=dims, keepdim=True)
+            var = xf.var(dim=dims, correction=0, keepdim=True)
         else:
             b, c = xf.shape[0], xf.shape[-1]
-            count = torch.full_like(xf[:1, 0, 0, 0, 0],
-                                    xf[0, ..., 0].numel())
+            count = xf.new_full((1,), xf[0, ..., 0].numel())
             sums = all_reduce_sum_grad(torch.cat(
-                [xf.sum(dim=(1, 2, 3)).reshape(-1),
-                 (xf * xf).sum(dim=(1, 2, 3)).reshape(-1), count]),
-                self.group)
-            mean, mean_sq = (sums[:-1] / sums[-1]).reshape(2, b, 1, 1, 1, c)
+                [xf.sum(dim=dims).reshape(-1),
+                 (xf * xf).sum(dim=dims).reshape(-1), count]), self.group)
+            mean, mean_sq = (sums[:-1] / sums[-1]).reshape(
+                2, b, *(1,) * len(dims), c)
             var = (mean_sq - mean * mean).clamp(min=0.0)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).to(self.dtype)
+        return (y * self.scale + self.bias).reshape(x.shape).to(self.dtype)
+
+
+class FoldedInstanceNorm(InstanceNorm):
+    """InstanceNorm on a space-to-depth folded tensor (B, d, h, w, F*C),
+    exact: per sample, the moments of each ORIGINAL channel over (d, h, w,
+    sub-voxel) are the unfolded (D, H, W) moments. Parameters as
+    :class:`InstanceNorm` ((C,) ``scale`` / ``bias``), so checkpoints
+    interchange with the plain path; on a depth slab (``group``) the sums
+    are all-reduced over the ranks as there. ``ConvBlock`` calls its
+    InstanceNorm with ``fold=F`` on a folded level, which is this."""
+
+    def __init__(self, features: int, fold: int, **kw):
+        super().__init__(features, **kw)
+        self.fold = fold
+
+    def forward(self, x: torch.Tensor, whole: bool = False) -> torch.Tensor:
+        return super().forward(x, whole=whole, fold=self.fold)
 
 
 class BatchNorm(nn.Module):
@@ -154,6 +189,127 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _dilated_backend_ok() -> bool:
+    """Gate of the input-dilated decoder form when no override is set. The
+    JAX package opens it on a TPU only, where that form was measured
+    faster; the port has no TPU backend, so its heuristic always picks the
+    parity form, as the JAX package does on CPU and GPU. Module-level, so a
+    test can monkeypatch it to exercise the dispatch."""
+    return False
+
+
+# trace-time override of the fused decoder's formulation ("parity" |
+# "dilated" | None = the heuristic above); see decoder_form_override
+_DECODER_FORM_OVERRIDE: Optional[str] = None
+
+# override of space-to-depth folding: "off" runs the plain level 0 even
+# where a config asks for a fold (utils/export.py pins it for every
+# artifact); see fold_override
+_FOLD_OVERRIDE: Optional[str] = None
+
+# the fold that fold_level0="auto" takes where its gates pass: W folded into
+# the channels, the dense-embedded kernel (the JAX package's measured
+# winner on the TPU it was tuned for)
+FOLD_AUTO = ((1, 1, 2), "dense")
+
+
+def _fold_backend_ok() -> bool:
+    """Gate of ``fold_level0="auto"``. The JAX package folds automatically
+    on a TPU only (``FETAL_TPU_FOLD=off`` turns even that off); the port
+    has no TPU backend, so "auto" never folds, as on the JAX package's CPU
+    and GPU backends. An explicit fold tuple still folds. Module-level, so
+    a test can monkeypatch it to exercise the auto path."""
+    return False
+
+
+def resolve_fold(fold_level0, formulation: str, x,
+                 extra_gates: bool = True):
+    """A model's ``fold_level0`` setting resolved for the input ``x``.
+
+    "auto" folds (``FOLD_AUTO``) only for a batch-1 input on a backend that
+    passes :func:`_fold_backend_ok`, with the folded axes divisible and the
+    model's own conditions (``extra_gates``) met; None / "off" never fold;
+    an explicit tuple passes through. ``fold_override("off")`` pins every
+    setting off. Returns ``(factors or None, formulation)``."""
+    ff, form = fold_level0, formulation
+    if ff in (None, "off"):
+        ff = None
+    elif ff == "auto":
+        ff, form = FOLD_AUTO
+        if not (extra_gates and x.shape[0] == 1 and _fold_backend_ok()
+                and all(s % f == 0 for s, f in zip(x.shape[1:4], ff))):
+            ff = None
+    if _FOLD_OVERRIDE == "off":
+        ff = None
+    return ff, form
+
+
+_BN_FOLD_ERROR = ("fold_factors requires norm-free conv blocks "
+                  "(InstanceNorm is supported; BatchNorm is not)")
+
+
+def check_unet_fold(fold_level0, fuse: bool, depth: int,
+                    batch_normalization: bool) -> None:
+    """Refuse, with the JAX package's messages, an explicit U-Net fold that
+    its model refuses: one without the fused decoder (deconvolution, a pool
+    other than 2) or below depth 2, or with BatchNorm, whose running
+    statistics have no folded twin. "auto" is not refused: it falls back to
+    the plain path where a gate fails."""
+    if fold_level0 in (None, "auto", "off"):
+        return
+    if not fuse or depth < 2:
+        raise ValueError("fold_level0 requires the fused decoder path "
+                         "(no deconvolution, pool (2,2,2)) and depth>=2")
+    if batch_normalization:
+        raise ValueError(_BN_FOLD_ERROR)
+
+
+class _Override:
+    """A context manager that sets one of this module's trace-time
+    overrides and restores the previous value on exit."""
+
+    name = ""
+    modes: Tuple = ()
+    what = ""
+
+    def __init__(self, mode: Optional[str]):
+        if mode not in self.modes:
+            raise ValueError(f"unknown {self.what} {mode!r}")
+        self._mode = mode
+        self._prev: Optional[str] = None
+
+    def __enter__(self):
+        self._prev = globals()[self.name]
+        globals()[self.name] = self._mode
+        return self
+
+    def __exit__(self, *exc):
+        globals()[self.name] = self._prev
+        return False
+
+
+class fold_override(_Override):
+    """Pin space-to-depth folding while it is active::
+
+        with fold_override("off"):   # the plain level 0 everywhere
+            ...
+    """
+
+    name, modes, what = "_FOLD_OVERRIDE", (None, "off"), "fold override"
+
+
+class decoder_form_override(_Override):
+    """Pin the fused decoder's plain formulation while it is active
+    ("parity", "dilated" or None for the heuristic)::
+
+        with decoder_form_override("parity"):
+            ...
+    """
+
+    name, what = "_DECODER_FORM_OVERRIDE", "decoder form"
+    modes = (None, "parity", "dilated")
+
+
 class ConvBlock(nn.Module):
     """Conv3D(same) -> optional BatchNorm / InstanceNorm -> activation
     (reference: unet3d/model/unet.py::create_convolution_block; the
@@ -194,6 +350,19 @@ class ConvBlock(nn.Module):
     side gets zeros there, the whole volume's SAME padding. ``whole`` (the
     ``forward`` argument): x is a level that every rank holds whole, so no
     halo is exchanged and the norm's statistics are x's own.
+
+    ``fold`` (the ``forward`` argument; ``ops/fold.py``): x lives in
+    space-to-depth folded layout with these per-axis factors and the conv
+    runs folded, in the formulation ``form``, with the unfolded parameter:
+    a 3^3 stride-1 conv (:func:`conv3_folded`), the fused decoder input
+    (``x_deep`` at cell resolution, the skip folded), a 1^3 conv, or the
+    3^3 stride-2 conv, whose output is unfolded (the next level's grid).
+    InstanceNorm takes each original channel's moments over the spatial
+    axes and the sub-voxels. A folded conv never takes a kernel route (the
+    JAX package checks the fold before the Pallas routes), and a block with
+    BatchNorm refuses it. On a depth slab the halo is one folded row, which
+    is one row on an unfolded depth axis and two on a folded one, and the
+    fused decoder's skip takes two rows (one folded row) of each neighbour.
     """
 
     def __init__(self, in_features: int, features: int, *,
@@ -260,7 +429,10 @@ class ConvBlock(nn.Module):
         return cached(weight, ("dhwio", self.dtype),
                       lambda w: dhwio(w.detach()))
 
-    def forward(self, x, whole: bool = False) -> torch.Tensor:
+    def forward(self, x, whole: bool = False, fold=None,
+                form: str = "dense") -> torch.Tensor:
+        if fold is not None:
+            return self._folded(x, tuple(fold), form, whole)
         if isinstance(x, (tuple, list)):
             return self._fused_decoder(*x, whole=whole)
         ci = x.shape[-1]
@@ -321,12 +493,96 @@ class ConvBlock(nn.Module):
                 self.negative_slope)
             activated = not self.norm_key
         else:
-            y = up_concat_conv3x3(
-                x_deep, None if skip is None else skip.to(self.dtype), kernel,
-                self.conv.bias)
+            # two plain formulations of the same op and parameter: the
+            # parity form, or the input-dilated conv where the override
+            # asks for it (or, with none, where the JAX heuristic would:
+            # training or a batch, on a backend that passes the gate)
+            form = _DECODER_FORM_OVERRIDE or (
+                "dilated" if (self.training or x_deep.shape[0] > 1)
+                and _dilated_backend_ok() else "parity")
+            impl = (up_concat_conv3x3_dilated if form == "dilated"
+                    else up_concat_conv3x3)
+            y = impl(x_deep, None if skip is None else skip.to(self.dtype),
+                     kernel, self.conv.bias)
         if group is not None:
             y = y[:, 2:-2]
         return self._epilogue(y, activated=activated, whole=whole)
+
+    def _folded(self, x, factors, form: str, whole: bool) -> torch.Tensor:
+        """This block's conv on space-to-depth folded activations (the JAX
+        ``ConvBlock._folded_path``), then the norm and the activation."""
+        if self.norm_key == "bn":
+            raise ValueError(_BN_FOLD_ERROR)
+        n = factors[0] * factors[1] * factors[2]
+        group = None if whole else self.spatial_group
+        kernel = self._kernel_dhwio()
+        if isinstance(x, (tuple, list)):
+            # fused upsample(+concat)+conv: x_deep at cell resolution
+            # (unfolded channels), the skip folded
+            if self.kernel_size != 3 or self.stride != 1:
+                raise ValueError("folded fused-decoder input needs a 3x3x3 "
+                                 "stride-1 block")
+            x_deep, skip = x
+            halo = 2 // factors[0]  # two rows: one folded row if D folds
+            if group is not None:
+                x_deep = halo_exchange(x_deep, group, 1, 1)
+                if skip is not None:
+                    skip = halo_exchange(skip, group, halo, halo)
+            up_ch = x_deep.shape[-1]
+            y = up_conv3_folded(x_deep.to(self.dtype),
+                                _part(kernel, 0, up_ch), factors)
+            if skip is not None:
+                y = y + conv3_folded(skip.to(self.dtype),
+                                     _part(kernel, up_ch, kernel.shape[3]),
+                                     None, factors, formulation=form)
+            y = y + self.conv.bias.repeat(n).to(y.dtype)
+            if group is not None:
+                y = y[:, halo:-halo]
+        elif self.kernel_size == 1 and self.stride == 1:
+            y = conv1_folded(x.to(self.dtype), kernel, self.conv.bias,
+                             factors)
+        elif self.kernel_size == 3 and self.stride == 1:
+            if group is not None:
+                x = halo_exchange(x, group, 1, 1)
+            y = conv3_folded(x.to(self.dtype), kernel, self.conv.bias,
+                             factors, formulation=form)
+            if group is not None:
+                y = y[:, 1:-1]
+        elif self.kernel_size == 3 and self.stride == 2:
+            rows = x.shape[1] * factors[0] // 2
+            if group is not None:
+                # one folded row of the next rank (SAME stride 2 pads (0, 1)
+                # on an even extent); on an unfolded depth one more zero
+                # row keeps the extent even, and the rows past this rank's
+                # outputs are cropped
+                x = halo_exchange(x, group, 0, 1)
+                if factors[0] == 1:
+                    x = F.pad(x, (0, 0, 0, 0, 0, 0, 0, 1))
+            y = conv3_folded_stride2(x.to(self.dtype), kernel,
+                                     self.conv.bias, factors)[:, :rows]
+            # the output is UNFOLDED (the stride lands on the cell grid):
+            # the norm and activation see plain channels
+            return self._epilogue(y.to(self.dtype), whole=whole)
+        else:
+            k, st = self.kernel_size, self.stride
+            raise ValueError(
+                f"fold_factors supports 3x3x3 stride-1/2 and 1x1x1 blocks, "
+                f"got kernel {(k,) * 3} strides {(st,) * 3}")
+        y = y.to(self.dtype)
+        if self.norm_key:
+            y = self._modules[self.norm_key](y, whole=whole, fold=n)
+            return apply_activation(y, self.activation, self.negative_slope)
+        return self._epilogue(y, whole=whole)
+
+
+def _part(kernel: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Input channels [lo, hi) of a DHWIO kernel, one tensor per version of
+    ``kernel`` (outside autograd), so the folded weights made from it are
+    kept too."""
+    if torch.is_grad_enabled() and kernel.requires_grad:
+        return kernel[:, :, :, lo:hi]
+    return cached(kernel, ("channels", lo, hi),
+                  lambda k: k[:, :, :, lo:hi])
 
 
 class UpConv(nn.Module):
@@ -448,12 +704,17 @@ class LevelSharding:
     gathered whole (:func:`gather`), every coarser level whole on every
     rank, and this rank's rows taken back (:func:`cut`) from the decoder
     output of ``level``. ``level`` None (or no group): nothing is gathered.
+    A level 0 folded on the depth axis (``fold_depth`` 2) cannot fold an
+    odd slab: there ``level`` is -1, the input is gathered whole
+    (``gather(x, -1)``) and the output cut (``cut(y, -1)``).
     """
 
-    def __init__(self, group, rows: int, levels: int):
+    def __init__(self, group, rows: int, levels: int, fold_depth: int = 1):
         self.group = group
         self.level = (None if group is None
                       else gather_level(rows, levels))
+        if self.level == 0 and fold_depth == 2:
+            self.level = -1
 
     def whole(self, level: int, decoder: bool = False) -> bool:
         """Whether ``level``'s encoder (or ``decoder``) blocks see whole

@@ -11,6 +11,10 @@ same parameter as an unfused conv block), fp32 bias.
 The plain version is the parity form :func:`up_concat_conv3x3` (the torch
 twin of ``models/layers.py::up_concat_conv3x3``): eight 2x2x2 convs of
 x_deep with pre-summed weights, interleaved, plus a SAME conv of the skip.
+:func:`up_concat_conv3x3_dilated` is the JAX package's second plain
+formulation of the same op, one input-dilated conv (a transposed conv
+here), which ``models/layers.py::ConvBlock`` takes under
+``decoder_form_override("dilated")``.
 The CUDA kernel (``csrc/dec0.cu``) computes the same sums as eight parity
 GEMMs with K = 8*C_up + 27*C_skip, reading x_deep and skip in place and
 writing the fine NDHWC output; :func:`build_dec0_weights` is the twin of
@@ -97,6 +101,58 @@ def up_concat_conv3x3(x_deep: torch.Tensor, skip: torch.Tensor | None,
     up half costs 8 taps instead of 27. ``skip=None`` is the no-concat
     form. Computes in x_deep's dtype."""
     y = _up_concat_conv(x_deep, skip, kernel)
+    return y + bias.to(y.dtype)
+
+
+# Per-axis tap-spread matrix of the input-dilated form: M[a, j] = 1 iff
+# 3^3-kernel tap j contributes to 4^3-kernel tap a when the nearest x2
+# upsample is absorbed into the kernel. Row a covers output offset a - 1
+# relative to 2 * (source index); taps {0}, {0,1}, {1,2}, {2}: the
+# transposed expansion of the parity form's S matrices (S[0] = rows {0, 2}
+# of M, S[1] = rows {1, 3}).
+_DILATE_M = ((1, 0, 0), (1, 1, 0), (0, 1, 1), (0, 0, 1))
+
+
+@device_table
+def _dilate_spread(device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(_DILATE_M, dtype=torch.float32, device=device)
+
+
+def _dilated_up_weight(w_up: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """(3, 3, 3, C_up, C_out) -> the ``F.conv_transpose3d`` weight (C_up,
+    C_out, 4, 4, 4) in ``dtype``: the 4^3 kernel M (x) M (x) M . W of the
+    input-dilated conv (summed in fp32), flipped in space, since a
+    transposed conv correlates the dilated input with the flipped kernel."""
+    M = _dilate_spread(w_up.device)
+    k4 = torch.einsum("aj,bk,cl,jklio->abcio", M, M, M, w_up.float())
+    return k4.flip(0, 1, 2).permute(3, 4, 0, 1, 2).to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+
+
+def up_concat_conv3x3_dilated(x_deep: torch.Tensor,
+                              skip: torch.Tensor | None,
+                              kernel: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """Same op as :func:`up_concat_conv3x3`, as ONE input-dilated conv
+    (the twin of ``models/layers.py::up_concat_conv3x3_dilated``).
+
+    conv3^3(up_nearest2(x)) == conv4^3(x, M(x)M(x)M . W, lhs_dilation 2, pad
+    2): the upsample is absorbed into a 4^3 kernel over the x2-dilated
+    input. In PyTorch that conv is ``F.conv_transpose3d`` with stride 2,
+    the flipped and transposed 4^3 kernel and padding 4 - 1 - 2 = 1, which
+    skips the dilation's zeros. Same parameter (concat order ``[upsampled,
+    skip]``) and same math, up to reassociation. Computes in x_deep's
+    dtype."""
+    up_ch = x_deep.shape[-1]
+    w = _dilated_up_weight(kernel[:, :, :, :up_ch, :], x_deep.dtype)
+    y = torch.nn.functional.conv_transpose3d(
+        x_deep.permute(0, 4, 1, 2, 3), w, stride=2, padding=1)
+    y = y.permute(0, 2, 3, 4, 1)
+    if skip is not None:  # Isensee's up-sampling module has no concat
+        w_skip = kernel[:, :, :, up_ch:, :].to(skip.dtype)
+        y = y + conv3d_ndhwc(skip, w_skip.permute(4, 3, 0, 1, 2), padding=1)
     return y + bias.to(y.dtype)
 
 

@@ -3,10 +3,11 @@
 Copies of ``fetal_mri_segmentation_tpu/ops/patches.py::
 compute_patch_indices``, ``get_set_of_patch_indices``,
 ``gaussian_importance_map``, ``get_random_nd_index`` and
-``get_patch_from_3d_data`` (its numpy path; the JAX package's native
-memcpy loader is not used here). They are copied, not imported: importing that
-module runs ``fetal_mri_segmentation_tpu/ops/__init__.py``, which imports
-jax. Tests hold each copy equal to its original.
+``get_patch_from_3d_data`` (which, as there, copies through the native host
+library, ``utils/native.py``, where it is built). They are copied, not
+imported: importing that module runs
+``fetal_mri_segmentation_tpu/ops/__init__.py``, which imports jax. Tests
+hold each copy equal to its original.
 
 Reference semantics (unet3d/utils/patches.py): corners form a grid with step
 ``patch_size - overlap``; without ``start`` the grid is centered and corners
@@ -15,9 +16,14 @@ may be negative, with reads beyond the volume zero-padded.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Union
 
 import numpy as np
+
+
+def _native_enabled() -> bool:
+    return os.environ.get("FETAL_TPU_NO_NATIVE", "0") != "1"
 
 
 def compute_patch_indices(image_shape: Sequence[int],
@@ -88,13 +94,24 @@ def get_random_nd_index(index_max: Sequence[int],
 def get_patch_from_3d_data(data: np.ndarray, patch_shape: Sequence[int],
                            patch_index: Sequence[int]) -> np.ndarray:
     """Slice a (possibly out-of-bounds) patch of the last three axes of
-    ``data`` (..., D, H, W); out-of-bounds reads are zero. A patch inside
-    the volume is a view of ``data``.
+    ``data`` (..., D, H, W); out-of-bounds reads are zero.
 
-    The JAX package's numpy path slices with a negative stop, and returns
-    a patch of the wrong shape, when the patch lies wholly outside the
-    volume along an axis; its native loader, which it uses where it is
-    built, returns zeros, as this copy does."""
+    A contiguous float32 volume of 3 or 4 dimensions is copied by the
+    native loader (``native/fastloader.cpp::extract_patch_f32``) where the
+    library is built, as in the JAX package; ``FETAL_TPU_NO_NATIVE=1``
+    forces numpy. Otherwise a patch inside the volume is a view of
+    ``data``. The JAX package's numpy path slices with a negative stop, and
+    returns a patch of the wrong shape, when the patch lies wholly outside
+    the volume along an axis; the native loader returns zeros there, as
+    this copy's numpy path does."""
+    if (_native_enabled() and isinstance(data, np.ndarray)
+            and data.dtype == np.float32 and data.ndim in (3, 4)
+            and data.flags.c_contiguous):
+        from fetal_mri_segmentation_tpu_torch.utils import native
+
+        out = native.extract_patch(data, patch_shape, patch_index)
+        if out is not None:
+            return out[0] if data.ndim == 3 else out
     patch_shape = np.asarray(patch_shape, dtype=np.int64)
     patch_index = np.asarray(patch_index, dtype=np.int64)
     image_shape = np.asarray(data.shape[-3:], dtype=np.int64)

@@ -34,7 +34,9 @@ Volume dims must be divisible by 2^(depth-1), and the depth by the
 spatial ranks, as in the JAX package. Where a rank's slab goes odd before
 the last halving, the models gather that level whole on every rank and run
 the coarser levels there, where XLA would reshard
-(``models/layers.py::gather_level``).
+(``models/layers.py::gather_level``). A space-to-depth folded level 0
+(``ops/fold.py``) runs on the slabs too, its halo one folded row; a slab
+too odd to fold on the depth axis is gathered whole before level 0.
 """
 
 from __future__ import annotations

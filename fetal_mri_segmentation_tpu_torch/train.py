@@ -111,7 +111,7 @@ def fetch_training_data_files(data_dir: str, modalities, truth_name="truth"):
 
 def check_flags(config, *, from_keras=None, init_params=None) -> None:
     """Refusals before anything is built: two starting points at once, and
-    what the port does not train with (a fold tuple)."""
+    a model the JAX package refuses (``config.py::check_supported``)."""
     if from_keras and init_params:
         raise ValueError("--from-keras and --init-params are two starting "
                          "points; pass one")

@@ -15,16 +15,20 @@ port's model classes or a checkpoint::
     predict = load_predictor("model.fetal", device="cuda")
     labels = predict(volume)  # (C, D, H, W) f32 -> (D, H, W) label map
 
-``platforms`` carries JAX's rule over to the port's two targets. With
-``"cpu"`` in the list (the default ``["cuda", "cpu"]``) the trace runs with
-both kernel switches off, on the plain route, so the artifact holds stock
-ops only and runs on either device, as the JAX package pins the parity
-decoder and no fold for any non-TPU platform. ``["cuda"]`` alone keeps the
-configured switches: the graph then holds the Hopper kernels as the custom
-ops ``fetal::conv3x3`` and ``fetal::up_concat_conv3x3`` (``ops/conv3x3.py``,
-``ops/dec0.py``), the artifact runs on the card only, and its loader
-imports those two modules to register them. Such an export needs the
-model on the card: it never falls back to a portable artifact.
+``platforms`` carries JAX's rule over to the port's two targets. The JAX
+package pins the parity decoder and no fold (``fold_override("off")``,
+``decoder_form_override("parity")``) for every artifact that targets a
+platform other than the TPU; the port targets only ``"cuda"`` and
+``"cpu"``, so it pins both in every artifact it writes, and the artifact of
+a fold config is the unfolded program. With ``"cpu"`` in the list (the
+default ``["cuda", "cpu"]``) the trace also runs with both kernel switches
+off, on the plain route, so the artifact holds stock ops only and runs on
+either device. ``["cuda"]`` alone keeps the configured switches: the graph
+then holds the Hopper kernels as the custom ops ``fetal::conv3x3`` and
+``fetal::up_concat_conv3x3`` (``ops/conv3x3.py``, ``ops/dec0.py``), the
+artifact runs on the card only, and its loader imports those two modules
+to register them. Such an export needs the model on the card: it never
+falls back to a portable artifact.
 
 The file: the port's magic, a little-endian u32 metadata length, the JSON
 metadata (the JAX package's keys plus ``"platforms"`` and the host label
@@ -135,7 +139,7 @@ def export_predictor(model, config, image_shape: Sequence[int], path: str,
     from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
         SlidingWindowPredictor)
     from fetal_mri_segmentation_tpu_torch.models.layers import (
-        set_spatial_group)
+        decoder_form_override, fold_override, set_spatial_group)
     from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
         make_direct_predictor)
 
@@ -161,7 +165,8 @@ def export_predictor(model, config, image_shape: Sequence[int], path: str,
     program = LabelProgram(predictor, threshold, direct)
     example = torch.zeros((n_ch,) + image_shape, dtype=torch.float32,
                           device=device)
-    with _traceable(model, kernels="cpu" not in plats), torch.no_grad():
+    with _traceable(model, kernels="cpu" not in plats), torch.no_grad(), \
+            fold_override("off"), decoder_form_override("parity"):
         exported = torch.export.export(program, (example,))
     labels = list(config.labels or range(1, int(config.n_labels) + 1))
     meta = {

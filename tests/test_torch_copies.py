@@ -307,3 +307,38 @@ def test_interop_source_equals_original(port, original, name):
     for const in ("BLOSC_FILTER_ID", "_NORM_CLASSES"):
         if hasattr(want, const):
             assert getattr(got, const) == getattr(want, const)
+
+
+def test_native_source_equals_original():
+    """The port builds its host library from its own copy of
+    ``native/fastloader.cpp``: a comment header naming the original, then
+    that file byte for byte."""
+    port = (ROOT / "fetal_mri_segmentation_tpu_torch" / "native"
+            / "fastloader.cpp").read_text()
+    original = (ROOT / "native" / "fastloader.cpp").read_text()
+    assert port.endswith(original)
+    header = port[:len(port) - len(original)].splitlines()
+    assert header and all(line.startswith("//") for line in header)
+    assert "native/fastloader.cpp" in header[0]
+
+
+def test_fold_constants_equal_original():
+    """``FOLD_AUTO``, the fold's tap-routing tables and the dilated form's
+    tap-spread matrix, and the fold's factor check and parity order, equal
+    the JAX package's."""
+    from fetal_mri_segmentation_tpu.models import layers as jax_layers
+    from fetal_mri_segmentation_tpu.ops import fold as jax_fold
+    from fetal_mri_segmentation_tpu_torch.models import layers as port_layers
+    from fetal_mri_segmentation_tpu_torch.ops import dec0 as port_dec0
+    from fetal_mri_segmentation_tpu_torch.ops import fold as port_fold
+
+    assert port_layers.FOLD_AUTO == jax_layers.FOLD_AUTO
+    assert port_dec0._DILATE_M == jax_layers._DILATE_M
+    for table in ("_T_FOLDED", "_T_UNFOLDED", "_T_STRIDE2"):
+        np.testing.assert_array_equal(getattr(port_fold, table),
+                                      getattr(jax_fold, table))
+    for factors in [(1, 1, 1), (2, 2, 2), (1, 2, 1), [2, 1, 2]]:
+        assert (port_fold._check_factors(factors)
+                == jax_fold._check_factors(factors))
+        f = tuple(factors)
+        assert port_fold._parities(f) == jax_fold._parities(f)

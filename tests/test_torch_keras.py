@@ -4,8 +4,9 @@ the JAX package's modules, on the CPU in fp32 at small size (Keras 3 on its
 CPU backend, h5py).
 
 - The port's forward after import against the Keras model's, for the
-  U-Net with and without the transposed-conv decoder and for Isensee2017;
-  the port's tree against the JAX importer's, through ``from_flax``.
+  U-Net with and without the transposed-conv decoder and for Isensee2017,
+  also into a config with a fold (the same parameter tree); the port's
+  tree against the JAX importer's, through ``from_flax``.
 - The ``.h5`` round trip in the legacy (whole-model) and the Keras 3
   (``.weights.h5``) layout; ``export_keras_*`` back into a Keras model.
 - Adam slots: one continued step after ``load_old_model`` against Keras's
@@ -160,6 +161,27 @@ def test_forward_after_import_equals_keras(twin):
     model = _port(cfg, KI.keras_state_dict(
         cfg, KI.keras_weight_list_from_model(kmodel)))
     x = np.random.default_rng(0).normal(0, 1, (2,) + SHAPE + (1,)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        _forward(model, x), np.asarray(kmodel(x)),
+        atol=ISENSEE_ATOL if name == "isensee" else ATOL, rtol=0)
+
+
+def test_import_into_a_fold_config_equals_keras(twin):
+    """The parameter tree does not change with the fold: the Keras weights
+    import into a config with ``fold_level0`` (1, 1, 2), whose folded
+    forward equals the Keras model's; the transposed-conv U-Net, which the
+    JAX model refuses to fold, is refused with its message."""
+    name, kmodel, cfg = twin
+    fold_cfg = dataclasses.replace(cfg, fold_level0=(1, 1, 2))
+    weights = KI.keras_weight_list_from_model(kmodel)
+    if name == "unet_deconv":
+        with pytest.raises(ValueError, match="requires the fused decoder"):
+            _port(fold_cfg, KI.keras_state_dict(fold_cfg, weights))
+        return
+    model = _port(fold_cfg, KI.keras_state_dict(fold_cfg, weights))
+    assert model.fold_level0 == (1, 1, 2)
+    x = np.random.default_rng(0).normal(0, 1, (1,) + SHAPE + (1,)).astype(
         np.float32)
     np.testing.assert_allclose(
         _forward(model, x), np.asarray(kmodel(x)),

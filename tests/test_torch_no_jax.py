@@ -4,6 +4,7 @@ itself, every port module imports, a tiny bf16 predict runs on the CPU
 through the kernel routes, a direct predict with flips TTA, a
 ``DevicePreprocessor`` and one ``serve --once`` sweep run,
 ``train_model`` trains two epochs from an in-memory data file, and
+a fold config predicts and the native patch loader copies patches,
 Isensee2017 and a BatchNorm U-Net each predict and take two train steps,
 and the experiment path runs end to end (a native dataset built from NIfTI
 cases by ``train.main --device cpu`` for one epoch with scale and rotation
@@ -79,6 +80,19 @@ assert prob.shape == (1, 12, 12, 12) and np.isfinite(prob).all()
 assert labels.shape == (12, 12, 12) and labels.dtype == np.uint8
 assert conv3x3.conv3x3_flat.launches == 0
 assert dec0.up_concat_conv3x3_kernel.launches == 0
+# a fold config predicts the same probabilities up to bf16 rounding; the
+# native loader copies patches
+import dataclasses
+from fetal_mri_segmentation_tpu_torch.ops import patches as port_patches
+from fetal_mri_segmentation_tpu_torch.utils import native
+fold_cfg = dataclasses.replace(cfg, fold_level0=(1, 1, 2))
+fold_model = build_model(fold_cfg, "cpu")
+fold_model.load_state_dict(pred.model.state_dict())
+assert np.abs(SlidingWindowPredictor(fold_model, fold_cfg, cfg.image_shape,
+                                     overlap=2)(x) - prob).max() < 2e-2
+assert native.available()
+assert np.array_equal(port_patches.get_patch_from_3d_data(
+    x, (8, 8, 8), (-2, 5, 6)), native.extract_patch(x, (8, 8, 8), (-2, 5, 6)))
 try:
     build_model(cfg, "cuda")
 except RuntimeError as e:

@@ -44,6 +44,9 @@ SCENARIOS = {
     "partial_batch": ({}, 3),
     "batchnorm": ({"batch_normalization": True}, 4),
     "batchnorm_partial": ({"batch_normalization": True}, 3),
+    # level 0 folded on W (ops/fold.py), explicit: each rank folds its rows
+    "with_fold": ({"fold_level0": (1, 1, 2), "fold_formulation": "dense"},
+                  4),
 }
 
 

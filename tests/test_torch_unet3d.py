@@ -136,11 +136,14 @@ def _thread_dist():
       "compute_dtype": "float32"}, 4, None, 2),
     ({"spatial_devices": 2, "depth": 3, "n_base_filters": 8,
       "compute_dtype": "float32"}, 6, None, 1),
-    ({"fold_level0": (1, 1, 2)}, None, ValueError, "fold_level0"),
+    ({"fold_level0": (1, 1, 2), "batch_normalization": True}, None,
+     ValueError, r"fold_factors requires norm-free conv blocks "
+     r"\(InstanceNorm is supported; BatchNorm is not\)"),
 ])
 def test_build_model_refuses_what_is_not_ported(monkeypatch, kw, rows,
                                                 error, match):
-    """A fold tuple is refused at build time. A spatial mesh is ported and
+    """A fold tuple with BatchNorm, which the JAX model refuses too, is
+    refused at build time with its message. A spatial mesh is ported and
     builds, and a depth slab that goes odd before the last halving is run
     as XLA reshards it: the level ``match``, where the slab is odd, is
     gathered whole. Here N ranks run as threads of this process through the
