@@ -146,7 +146,21 @@ Phases, one line each (or one line per checked shape):
    port's ``native/fastloader.cpp`` and load; each entry point against
    numpy on a 160 x 160 x 110 case, with host microseconds; host-staged
    ``train_model`` patches/s with the library and with
-   ``FETAL_TPU_NO_NATIVE=1``.
+   ``FETAL_TPU_NO_NATIVE=1``;
+14. quality: the recipe of ``tools/torch_parity_dice.py`` (the root
+   ``parity_dice.py``'s: a depth-3, 8-filter U-Net on twelve whole 32^3
+   synthetic volumes, batch 3, lr 5e-4) at its full 30 epochs, bf16 with
+   both kernel switches on, through ``train.main``, ``predict.main`` and
+   ``evaluate.main``: the loss falls, no dice-collapse warning, the best
+   checkpoint restores and the final state reloads bit for bit, the
+   served model is the checkpoint's, a {0, 1} label map per validation
+   case, ``scores.csv`` with its columns, the held-out mean hard Dice at
+   least ``QUALITY_DICE_FLOOR``; then ``QUALITY_MC_EPOCHS`` epochs of
+   ``tools/torch_multiclass_quality.py``'s recipe on ``QUALITY_MC_CASES``
+   cases (the per-label dice columns in the log, the weighted-dice loss
+   falls, label maps in {0, 1, 2, 4}). Launches exactly
+   ``QUALITY_PER_FORWARD`` per train or validation step and per predicted
+   batch. The full recipes are records the tools keep, not gates here.
 
 The kernel phase also checks every kernel layer of the direct 128^3
 forward at batch 1 and at the TTA chunks of 2 and 8, and the spatial
@@ -3818,6 +3832,226 @@ def native_phase(torch, work: Path, smi: str) -> dict:
     return launches
 
 
+# The quality phase: the recipe of tools/torch_parity_dice.py (the root
+# parity_dice.py's) through the three entry points, and a short run of the
+# multi-class recipe of tools/torch_multiclass_quality.py. The full recipes
+# are records kept by those tools, not gates of this script: a converged
+# dice tuned on one run can miss on the next with no fault in the code.
+# The one floor: the parity recipe's held-out mean hard Dice is recorded at
+# 0.9597 (JAX) and 0.9556 (CPU-Keras) with a per-case std of about 0.004
+# (docs/PARITY.md); a loop that trains, checkpoints and predicts correctly
+# lands near those, and a broken one (no learning, a wrong checkpoint, a
+# wrong label map) far below half. 0.80 sits more than 35 per-case stds
+# under the records: it catches a broken loop and not the noise of one run.
+QUALITY_DICE_FLOOR = 0.80
+QUALITY_MC_CASES, QUALITY_MC_EPOCHS = 12, 20
+# Launches per forward of both recipes' U-Net (depth 3, 8 base filters,
+# fused decoder): the 1-channel stem stays on cuDNN; enc0_conv2 8->16,
+# enc1 16->16 and 16->32, enc2 32->32 and 32->64, dec1_conv2 32->32 and
+# dec0_conv2 16->16 take K2 (no C_in is a multiple of 128, so K1 never
+# runs); dec1_conv1 and dec0_conv1 take K3.
+QUALITY_PER_FORWARD = {"conv3x3": 0, "conv3x3_flat": 7,
+                       "up_concat_conv3x3_kernel": 2}
+
+
+def quality_phase(torch, work: Path, smi: str) -> dict:
+    """The parity recipe at its full 30 epochs (bf16, both kernel switches
+    on) through ``tools/torch_parity_dice.py``'s dataset and config and
+    ``train.main`` -> ``predict.main`` -> ``evaluate.main``: the last
+    epoch's loss below the first, no dice-collapse warning, the best
+    checkpoint restored (its epoch and validation loss the log's best) and
+    the final state reloaded bit for bit, the served model equal to the
+    checkpoint, a {0, 1} label map per validation case, ``scores.csv`` with
+    its columns, launches exactly one forward's worth per train or
+    validation step and per predicted batch, and the held-out mean hard
+    Dice at least ``QUALITY_DICE_FLOOR``. Then ``QUALITY_MC_EPOCHS`` epochs
+    of the multi-class recipe on ``QUALITY_MC_CASES`` cases through the
+    same entry points, for mechanics only: the per-label dice columns in
+    the log, the weighted-dice loss falling, label maps in {0, 1, 2, 4},
+    launches exact."""
+    import csv
+    import math
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_multiclass_quality as mc
+    import torch_parity_dice as parity
+    import torch_quality_common as common
+
+    from fetal_mri_segmentation_tpu_torch.data.build import open_data_file
+    from fetal_mri_segmentation_tpu_torch.data.synthetic import (
+        write_multiclass_dataset)
+    from fetal_mri_segmentation_tpu_torch.inference.predict import (
+        load_serving_model)
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.ops.patches import (
+        compute_patch_indices)
+    from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
+        get_number_of_patches, get_number_of_steps)
+    from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
+        CheckpointIO)
+    from fetal_mri_segmentation_tpu_torch.training.loop import (
+        detect_dice_collapse)
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load
+    from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti
+
+    torch.backends.cudnn.allow_tf32 = True  # as the train phase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+
+    def fresh(cfg):
+        return create_train_state(build_model(cfg, "cuda"), cfg)
+
+    def steps(cfg, state):
+        """Train steps per epoch (from the state's step count) and
+        validation steps per epoch, from the dataset and the split."""
+        if state.step % cfg.n_epochs:
+            raise AssertionError(f"{state.step} steps over {cfg.n_epochs} "
+                                 "epochs")
+        with open_data_file(cfg.data_file) as data_file:
+            validation = pickle_load(cfg.validation_file)
+            n_v = get_number_of_steps(get_number_of_patches(
+                data_file, validation, cfg.patch_shape,
+                patch_overlap=cfg.validation_patch_overlap,
+                skip_blank=cfg.skip_blank), cfg.validation_batch_size)
+        return state.step // cfg.n_epochs, n_v, validation
+
+    def check_launches(tag, cfg, run, state, labels):
+        """Exactly one forward's worth per train or validation step and
+        per predicted batch; every predicted case a label map of
+        ``labels`` at the image shape."""
+        n_t, n_v, validation = steps(cfg, state)
+        per_case = math.ceil(len(compute_patch_indices(
+            cfg.image_shape, cfg.patch_shape, 0)) / B)
+        want = {"train.main": cfg.n_epochs * (n_t + n_v),
+                "predict.main": per_case * len(validation)}
+        for entry, forwards in want.items():
+            got = run["launches"][entry]
+            launches[f"{tag} {entry}"] = got
+            need = {k: n * forwards for k, n in QUALITY_PER_FORWARD.items()}
+            if got != need or not forwards:
+                raise AssertionError(f"{tag} {entry} launched {got}, not "
+                                     f"{need} ({forwards} forwards)")
+        cases = sorted(os.listdir(run["pred_dir"]))
+        if run["n_predicted"] != len(validation) or len(cases) != len(
+                validation):
+            raise AssertionError(f"{tag}: predicted {cases}")
+        for case in cases:
+            label = load_nifti(os.path.join(run["pred_dir"], case,
+                                            "prediction.nii.gz"))
+            values = set(np.unique(label.get_fdata()).tolist())
+            if tuple(label.shape) != tuple(cfg.image_shape) or not (
+                    values <= labels):
+                raise AssertionError(f"{tag} {case}: {label.shape}, "
+                                     f"values {sorted(values)}")
+        return n_t, n_v
+
+    # 1. the parity recipe, at its full 30 epochs
+    out = work / "parity"
+    out.mkdir()
+    t0 = time.perf_counter()
+    config = parity.make_config(str(out), parity.build_dataset(str(out)))
+    build_s = time.perf_counter() - t0
+    if not (config.use_pallas_conv and config.use_pallas_dec0
+            and config.compute_dtype == "bfloat16"
+            and config.n_epochs == parity.EPOCHS):
+        raise AssertionError(f"parity config {config}")
+    run = common.run_mains(config, str(out / "cases"), str(out), [1],
+                           device="cuda", overlap=0, verbose=False)
+    state = run["state"]
+    n_t, n_v = check_launches("parity", config, run, state, {0.0, 1.0})
+    rows = common.log_rows(config.training_log)
+    loss = [float(r["loss"]) for r in rows]
+    dice = [float(r["dice_coefficient"]) for r in rows]
+    val_loss = [float(r["val_loss"]) for r in rows]
+    if len(rows) != config.n_epochs or not loss[-1] < loss[0]:
+        raise AssertionError(f"parity: {len(rows)} epochs, loss {loss}")
+    if any(detect_dice_collapse(dice[:i + 1]) for i in range(len(dice))):
+        raise AssertionError(f"parity: the dice-collapse warning fired "
+                             f"(training dice {dice})")
+    best = CheckpointIO(config.model_file)
+    restored, epoch, best_val, _ = best.restore(fresh(config))
+    if best_val != min(val_loss) or epoch != val_loss.index(best_val) + 1:
+        raise AssertionError(f"parity checkpoint: epoch {epoch}, best "
+                             f"{best_val}; log {val_loss}")
+    served = load_serving_model(config, device="cuda")
+    for (n, a), b in zip(restored.model.state_dict().items(),
+                         served.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"parity: served {n} differs from the "
+                                 "checkpoint")
+    final = CheckpointIO(str(out / "final.pt"))
+    final.save(state, epoch=config.n_epochs, best_val=best_val)
+    reloaded = fresh(config)
+    final.restore(reloaded)
+    for (n, a), b in zip(state.model.named_parameters(),
+                         reloaded.model.parameters()):
+        moments_a = state.optimizer.state[a]
+        moments_b = reloaded.optimizer.state[b]
+        if not (torch.equal(a, b) and all(torch.equal(
+                moments_a[k], moments_b[k]) for k in ("mu", "nu"))):
+            raise AssertionError(f"parity: reloaded {n} differs")
+    with open(run["scores_csv"]) as f:
+        table = list(csv.reader(f))
+    scores = [row["label_1_dice"] for row in run["rows"].values()]
+    if table[0] != ["", "label_1_dice", "empty_truth"] or len(table) != len(
+            scores) + 1 or not all(np.isfinite(scores)):
+        raise AssertionError(f"parity scores.csv {table}")
+    mean = float(np.mean(scores))
+    print(f"quality parity recipe ({config.n_epochs} epochs, {n_t} + {n_v} "
+          f"steps an epoch, bf16, kernels on): loss {loss[0]:.6g} -> "
+          f"{loss[-1]:.6g}, training dice {dice[0]:.6g} -> {dice[-1]:.6g}; "
+          f"best checkpoint epoch {epoch} restored, the final state and "
+          f"its Adam moments reloaded bit for bit; held-out hard Dice "
+          f"{', '.join(f'{s:.4f}' for s in scores)}, mean {mean:.4f} >= "
+          f"floor {QUALITY_DICE_FLOOR} (recorded: JAX "
+          f"{parity.JAX_RECORDED_MEAN}, CPU-Keras "
+          f"{parity.KERAS_RECORDED_MEAN}); dataset {build_s:.4f} s, "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in run["seconds"].items())
+          + f"; {common.launch_line(run['launches'])} ({smi})", flush=True)
+    if not mean >= QUALITY_DICE_FLOOR:
+        raise AssertionError(f"parity: held-out mean hard Dice {mean} < "
+                             f"{QUALITY_DICE_FLOOR}")
+    del state, restored, reloaded, served, run
+    torch.cuda.empty_cache()
+
+    # 2. the multi-class recipe, mechanics only
+    out = work / "multiclass"
+    write_multiclass_dataset(str(out / "cases"), n_cases=QUALITY_MC_CASES,
+                             shape=mc.IMAGE)
+    config = mc.make_config(str(out), QUALITY_MC_EPOCHS)
+    regions = {"whole": list(mc.FOREGROUND)}
+    run = common.run_mains(config, str(out / "cases"), str(out),
+                           mc.FOREGROUND, device="cuda", overlap=0,
+                           regions=regions, verbose=False)
+    n_t, n_v = check_launches("multiclass", config, run, run["state"],
+                              {0.0, 1.0, 2.0, 4.0})
+    rows = common.log_rows(config.training_log)
+    columns = [f"{p}label_{i}_dice_coef" for i in range(config.n_labels)
+               for p in ("", "val_")]
+    missing = [c for c in columns if c not in rows[0]]
+    loss = [float(r["loss"]) for r in rows]
+    if missing or len(rows) != config.n_epochs or not loss[-1] < loss[0]:
+        raise AssertionError(f"multiclass: {len(rows)} epochs, missing "
+                             f"{missing}, loss {loss}")
+    summary = mc.summarize(run["rows"], regions)
+    print(f"quality multi-class recipe ({QUALITY_MC_CASES} cases, "
+          f"{config.n_epochs} epochs, {n_t} + {n_v} steps an epoch): "
+          f"weighted-dice loss {loss[0]:.6g} -> {loss[-1]:.6g}; last "
+          f"epoch's " + ", ".join(
+              f"{c} {float(rows[-1][c]):.4f}" for c in columns
+              if not c.startswith("val_"))
+          + "; held-out hard Dice (mean, min) " + ", ".join(
+              f"{k} ({m:.4f}, {lo:.4f})" for k, (m, lo) in summary.items())
+          + "; " + ", ".join(f"{k} {v:.4f} s"
+                             for k, v in run["seconds"].items())
+          + f"; {common.launch_line(run['launches'])} ({smi})", flush=True)
+    return launches
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -3869,6 +4103,8 @@ def main() -> None:
                         ("fold", lambda t, w: fold_phase(
                             t, w, smi.splitlines()[0])),
                         ("native", lambda t, w: native_phase(
+                            t, w, smi.splitlines()[0])),
+                        ("quality", lambda t, w: quality_phase(
                             t, w, smi.splitlines()[0]))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3876,7 +4112,8 @@ def main() -> None:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
     (launches, train_launches, serve_launches, isensee, experiment,
-     scale, spatial, interop, fold, native_launches) = results.values()
+     scale, spatial, interop, fold, native_launches,
+     quality) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -3902,6 +4139,8 @@ def main() -> None:
                                   in fold.items()},
                 "native_launches": {path: counts[name] for path, counts
                                     in native_launches.items()},
+                "quality_launches": {path: counts[name] for path, counts
+                                     in quality.items()},
                 "halo_forward": halo_stats[name],
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]

@@ -256,6 +256,29 @@ def test_synthetic_cases_equal(tmp_path, modalities):
             np.testing.assert_array_equal(a.affine, b.affine)
 
 
+@pytest.mark.parametrize("shape", [(12, 14, 10), (16, 16, 16)])
+def test_multiclass_cases_equal(tmp_path, shape):
+    from fetal_mri_segmentation_tpu_torch.data import synthetic as port_syn
+    from tests import synthetic as test_syn
+    for seed in range(3):
+        got = port_syn.make_multiclass_case(shape, seed)
+        want = test_syn.make_multiclass_case(shape, seed)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert set(np.unique(got[1])) <= {0, 1, 2, 4}
+    got = port_syn.write_multiclass_dataset(str(tmp_path / "port"), 2, shape)
+    want = test_syn.write_multiclass_dataset(str(tmp_path / "test"), 2, shape)
+    assert ([[os.path.relpath(f, tmp_path / "port") for f in c] for c in got]
+            == [[os.path.relpath(f, tmp_path / "test") for f in c]
+                for c in want])
+    for case_got, case_want in zip(got, want):
+        for f, g in zip(case_got, case_want):
+            a, b = port_nifti.load_nifti(f), jax_nifti.load_nifti(g)
+            np.testing.assert_array_equal(a.get_fdata(), b.get_fdata())
+            np.testing.assert_array_equal(a.affine, b.affine)
+
+
 # (port module, JAX module, names) of the interop code copied verbatim; the
 # functions adapted to the port are held to their originals' results in
 # tests/test_torch_keras.py and test_torch_blosc.py

@@ -20,7 +20,11 @@ group through ``initialize_distributed`` and takes a data-parallel cached
 step, a GSPMD step on a 1 x 1 hybrid mesh and predicts with the spatial
 and the patch-grid sharded predictors);
 ``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
-exits non-zero without printing a result, in the repository and alone."""
+exits non-zero without printing a result, in the repository and alone.
+The quality-loop tools (``tools/torch_parity_dice.py``,
+``torch_multiclass_quality.py``, ``torch_quality_loops.py`` and their
+``torch_quality_common.py``) import under the same refusals and make their
+recipes' configs."""
 
 import os
 import shutil
@@ -350,6 +354,43 @@ print("imported", len(names), "modules")
 '''
 
 
+TOOLS_SCRIPT = r'''
+import sys
+
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py",
+           "fetal_mri_segmentation_tpu"}
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is refused in this test")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, "tools")
+
+import torch_multiclass_quality
+import torch_parity_dice
+import torch_quality_common
+import torch_quality_loops
+
+configs = [torch_parity_dice.make_config("out", "out/data"),
+           torch_multiclass_quality.make_config("out", 500),
+           torch_multiclass_quality.make_config("out", 500, softmax=True),
+           torch_quality_loops.make_config("unet", "out", 40),
+           torch_quality_loops.make_config("isensee", "out", 100)]
+assert all(c.use_pallas_conv and c.use_pallas_dec0 for c in configs)
+torch_quality_common.zero_launches()
+assert set(torch_quality_common.read_launches().values()) == {0}
+assert torch_quality_common.card("cpu") == "cpu"
+loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+assert not loaded, loaded
+print("tools ok")
+'''
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -363,6 +404,14 @@ def test_port_imports_and_predicts_without_jax():
                           timeout=400)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
+
+
+def test_quality_tools_import_without_jax():
+    proc = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "tools ok" in proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])
