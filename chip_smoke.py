@@ -101,7 +101,10 @@ Phases, one line each (or one line per checked shape):
    from 0.5), the spatial predictor of ``configs/fetal_isensee.json``
    against its direct predictor (``NORM_PROB_TOL``: InstanceNorm's moments
    summed over the ranks, the stride-2 halo, 6 / 8 / 0 launches per
-   forward), the 1 x 2 GSPMD train step against the single-device step
+   forward) and the same with level 0 folded as ``SPATIAL_FOLD`` against
+   the folded model's direct predictor (the one-row folded halo, the
+   stride-2 entry's zero row, the folded InstanceNorm's moments summed over
+   the ranks; 6 / 5 / 0 launches per forward), the 1 x 2 GSPMD train step against the single-device step
    (as the scale phase's), each rank's peak memory, and as a launcher
    starts them ``train.main`` with ``spatial_devices=2`` for two epochs
    and ``predict.main`` with ``spatial_devices=2`` and ``num_devices=2``
@@ -160,7 +163,13 @@ Phases, one line each (or one line per checked shape):
    cases (the per-label dice columns in the log, the weighted-dice loss
    falls, label maps in {0, 1, 2, 4}). Launches exactly
    ``QUALITY_PER_FORWARD`` per train or validation step and per predicted
-   batch. The full recipes are records the tools keep, not gates here.
+   batch. The full recipes are records the tools keep, not gates here;
+15. bench: ``python -m fetal_mri_segmentation_tpu_torch.bench --quick`` as
+   a subprocess with ``--kernels off`` and then ``on``: exit code 0, one
+   JSON line with the root ``bench.py``'s quick names and
+   ``detail.kernels``, a positive ``value``, ``detail.device`` the
+   ``nvidia-smi`` line of the card, and the composite's launches exactly 0
+   off and ``BENCH_LAUNCHES`` on.
 
 The kernel phase also checks every kernel layer of the direct 128^3
 forward at batch 1 and at the TTA chunks of 2 and 8, and the spatial
@@ -2493,6 +2502,24 @@ def _isensee_config():
         use_pallas_conv=True, use_pallas_dec0=True)
 
 
+# The spatial phase's folded config: Isensee2017 with level 0 folded (2, 2,
+# 2) in the parity formulation, as tests/test_torch_fold.py holds it on
+# thread-ranks. On a slab it runs the halo of one folded row, the stride-2
+# entry's zero row and the folded InstanceNorm with its moments summed over
+# the ranks; its folded level-0 convs are stock convs (6 / 5 / 0 launches
+# per forward).
+SPATIAL_FOLD = ((2, 2, 2), "parity")
+
+
+def _isensee_fold_config():
+    """``_isensee_config()`` with level 0 folded as ``SPATIAL_FOLD``."""
+    import dataclasses
+
+    return dataclasses.replace(_isensee_config(),
+                               fold_level0=SPATIAL_FOLD[0],
+                               fold_formulation=SPATIAL_FOLD[1])
+
+
 def _counted(torch, run):
     """``(run(), launches)``: the kernels' counts zeroed just before the
     run and read just after it."""
@@ -2591,12 +2618,17 @@ def _spatial_rank(local_rank: int, world: int, ports: list,
             overlap=config.validation_patch_overlap), data_mesh)
         isensee = build_model(_isensee_config(), mesh.device)
         isensee.load_state_dict(torch.load(work / "isensee_weights.pt"))
+        isensee_fold = build_model(_isensee_fold_config(), mesh.device)
+        isensee_fold.load_state_dict(torch.load(work / "isensee_weights.pt"))
         for tag, predictor, vols, forwards, tol in (
                 ("spatial", make_spatial_predictor(model, config, mesh),
                  volumes, 1, PROB_TOL),
                 ("sharded", sharded, volumes, len(sharded.share), PROB_TOL),
                 ("isensee", make_spatial_predictor(
                     isensee, _isensee_config(), mesh), volumes, 1,
+                 NORM_PROB_TOL),
+                ("isensee_fold", make_spatial_predictor(
+                    isensee_fold, _isensee_fold_config(), mesh), volumes, 1,
                  NORM_PROB_TOL),
                 # slabs of 60 rows go odd at level 2: gathered whole there
                 ("reshard", make_spatial_predictor(model, config, mesh),
@@ -2625,7 +2657,7 @@ def _spatial_rank(local_rank: int, world: int, ports: list,
                     torch, lambda: predictor.predict_probabilities(
                         volumes[0]))
             del probs
-        del model, sharded, isensee
+        del model, sharded, isensee, isensee_fold
         torch.cuda.empty_cache()
         result["step"] = _dp_step_check(
             torch, mesh, f"1 x {world} spatial mesh over {backend}",
@@ -2759,7 +2791,8 @@ def spatial_phase(torch, work: Path, smi: str) -> dict:
     for kind, cfg in (("isensee", _isensee_config()), (
             "isensee_fp32", dataclasses.replace(
                 _isensee_config(), use_pallas_conv=False,
-                use_pallas_dec0=False, compute_dtype="float32"))):
+                use_pallas_dec0=False, compute_dtype="float32")),
+            ("isensee_fold", _isensee_fold_config())):
         isensee[kind] = make_direct_predictor(build_model(cfg, "cuda"), cfg)
         isensee[kind].model.load_state_dict(weights)
     torch.backends.cudnn.allow_tf32 = False  # the fp32 model stays fp32
@@ -2843,6 +2876,7 @@ def spatial_phase(torch, work: Path, smi: str) -> dict:
         backend = result["backend"]
         for tag, per in (("spatial", PER_FORWARD), ("sharded", PER_FORWARD),
                          ("isensee", ISENSEE_PER_FORWARD),
+                         ("isensee_fold", ISENSEE_FOLD_PER_FORWARD),
                          ("reshard", PER_FORWARD)):
             got = result[tag]
             want = {k: n * got["forwards"] for k, n in per.items()}
@@ -4052,6 +4086,67 @@ def quality_phase(torch, work: Path, smi: str) -> dict:
     return launches
 
 
+# The bench phase: `python -m fetal_mri_segmentation_tpu_torch.bench
+# --quick` as a user runs it, once with each switch setting. Its composite
+# runs the depth-3, 32-filter U-Net: 1 warm-up step + 3 trials x 5 x 8
+# steps + 20 steps = 141 training forwards, and 1 warm-up + 3 x 5 + 1
+# sliding-window volumes of one 27-patch batch each = 17 forwards; 158 in
+# all. A forward launches K1 for enc2's 128->128 and 128->256 convs and
+# dec1_conv2 (C_in 128), K2 for enc0_conv2 32->64, enc1's 64->64 and
+# 64->128 and dec0_conv2, K3 for dec1_conv1 and dec0_conv1.
+BENCH_FORWARDS = 1 + 3 * 5 * 8 + 20 + 1 + 3 * 5 + 1
+BENCH_LAUNCHES = {"K1": 3 * BENCH_FORWARDS, "K2": 4 * BENCH_FORWARDS,
+                  "K3": 2 * BENCH_FORWARDS}  # 474 / 632 / 316
+BENCH_KERNELS = {"K1": "conv3x3", "K2": "conv3x3_flat",
+                 "K3": "up_concat_conv3x3_kernel"}
+BENCH_QUICK_NAMES = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_QUICK_DETAIL = {"train_step_sec", "whole_volume_infer_sec", "device",
+                      "host_loadavg", "host_canary_sec", "kernels"}
+BENCH_TIMEOUT_S = 300
+
+
+def bench_phase(torch, work: Path, smi: str) -> dict:
+    """The port's bench entry with ``--quick``, as a subprocess with the
+    switches off and then on: exit code 0, one JSON line on stdout with the
+    quick names, a positive ``value``, ``detail.device`` the card, and each
+    kernel's launches over the composite exactly 0 off and
+    ``BENCH_LAUNCHES`` on. Returns the launches by kernel name."""
+    launches = {}
+    for switches in ("off", "on"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fetal_mri_segmentation_tpu_torch.bench",
+             "--quick", "--kernels", switches], cwd=ROOT,
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"bench --kernels {switches} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        line = json.loads(lines[-1])
+        detail = line.get("detail", {})
+        want = (BENCH_LAUNCHES if switches == "on"
+                else dict.fromkeys(BENCH_LAUNCHES, 0))
+        print(f"bench --quick --kernels {switches}: {seconds:.4f} s, value "
+              f"{line.get('value')} {line.get('unit')}, train_step_sec "
+              f"{detail.get('train_step_sec')}, whole_volume_infer_sec "
+              f"{detail.get('whole_volume_infer_sec')}, vs_baseline "
+              f"{line.get('vs_baseline')}, device {detail.get('device')!r}, "
+              f"kernels {detail.get('kernels')} (want {want})", flush=True)
+        if len(lines) != 1 or set(line) != BENCH_QUICK_NAMES or set(
+                detail) != BENCH_QUICK_DETAIL:
+            raise AssertionError(f"bench --kernels {switches}: {lines}")
+        if not line["value"] > 0 or detail["device"] != smi:
+            raise AssertionError(f"bench --kernels {switches}: value "
+                                 f"{line['value']}, device {detail['device']}")
+        if detail["kernels"] != {"switches": switches, "launches": want}:
+            raise AssertionError(f"bench --kernels {switches}: "
+                                 f"{detail['kernels']}, not {want}")
+        launches[switches] = detail["kernels"]["launches"]
+    return {name: {s: launches[s][k] for s in launches}
+            for k, name in BENCH_KERNELS.items()}
+
+
 def main() -> None:
     start = time.perf_counter()
     import torch
@@ -4105,6 +4200,8 @@ def main() -> None:
                         ("native", lambda t, w: native_phase(
                             t, w, smi.splitlines()[0])),
                         ("quality", lambda t, w: quality_phase(
+                            t, w, smi.splitlines()[0])),
+                        ("bench", lambda t, w: bench_phase(
                             t, w, smi.splitlines()[0]))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -4113,7 +4210,7 @@ def main() -> None:
         seconds[name] = time.perf_counter() - t0
     (launches, train_launches, serve_launches, isensee, experiment,
      scale, spatial, interop, fold, native_launches,
-     quality) = results.values()
+     quality, bench) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
           + f"; {time.perf_counter() - start:.4f} since the script started",
@@ -4141,6 +4238,7 @@ def main() -> None:
                                     in native_launches.items()},
                 "quality_launches": {path: counts[name] for path, counts
                                      in quality.items()},
+                "bench_launches": bench[name],
                 "halo_forward": halo_stats[name],
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]

@@ -365,3 +365,27 @@ def test_fold_constants_equal_original():
                 == jax_fold._check_factors(factors))
         f = tuple(factors)
         assert port_fold._parities(f) == jax_fold._parities(f)
+
+
+def test_bench_copies_name_their_original():
+    """The port's bench keeps its own copies of the root ``bench.py``'s
+    constants and ``_make_batch`` (that file imports JAX in every row): the
+    module's header names them, and they equal the originals."""
+    import importlib.util
+
+    from fetal_mri_segmentation_tpu_torch import bench as port_bench
+
+    spec = importlib.util.spec_from_file_location("root_bench",
+                                                  ROOT / "bench.py")
+    root_bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root_bench)
+    header = port_bench.__doc__.split("Copies of root ``bench.py``")[1]
+    for name in ("PATCH", "VOLUME", "OVERLAP", "TRAIN_PATCHES_PER_VOLUME"):
+        assert f"``{name}``" in header
+        assert getattr(port_bench, name) == getattr(root_bench, name)
+    assert "``_make_batch``" in header and "bench.py:45" in header
+    assert port_bench._make_batch.__doc__.startswith(
+        "Copy of root ``bench.py::_make_batch``")
+    for got, want in zip(port_bench._make_batch(np.random.default_rng(3)),
+                         root_bench._make_batch(np.random.default_rng(3))):
+        np.testing.assert_array_equal(got, want)

@@ -19,7 +19,9 @@ the device case cache and the data mesh run too (``train.main`` with
 group through ``initialize_distributed`` and takes a data-parallel cached
 step, a GSPMD step on a 1 x 1 hybrid mesh and predicts with the spatial
 and the patch-grid sharded predictors);
-``device="cuda"`` raises on this CUDA-less machine; and ``chip_smoke.py``
+``device="cuda"`` raises on this CUDA-less machine (the port's bench,
+``fetal_mri_segmentation_tpu_torch.bench``, imports with the root
+``bench.py`` refused too); and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone.
 The quality-loop tools (``tools/torch_parity_dice.py``,
 ``torch_multiclass_quality.py``, ``torch_quality_loops.py`` and their
@@ -43,7 +45,7 @@ SCRIPT = r'''
 import importlib, pkgutil, sys
 
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "h5py",
-           "fetal_mri_segmentation_tpu"}
+           "fetal_mri_segmentation_tpu", "bench"}
 
 
 class Refuse:
@@ -65,6 +67,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+
+# the port's bench: imported by the walk above, with the root bench.py
+# ("bench") refused
+assert "fetal_mri_segmentation_tpu_torch.bench" in names
 
 from fetal_mri_segmentation_tpu_torch.config import Config
 from fetal_mri_segmentation_tpu_torch.models import build_model
