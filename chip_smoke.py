@@ -31,7 +31,16 @@ Phases, one line each (or one line per checked shape):
    ``train_model`` for two epochs on the three synthetic cases
    preprocessed into an in-memory data file, with augmentation, and the
    kernels' launch counts over that run: one forward's worth per step;
-6. serve: the same config and weights through the serving surface. The
+6. parity: the port's bf16 training where the JAX package holds its own.
+   The max-pool tie gradients (unfolded, folds (2, 2, 2) and (1, 2, 2);
+   fp32 and bf16) on the card equal the CPU's bit for bit on the recipe's
+   level-0 pool input with planted ties (the CPU tests hold those to
+   JAX's); then ``PARITY_STEPS`` bf16 steps of the multi-class recipe's
+   model (depth 3, 8 filters, batch 3 of 40^3) with the kernels on and
+   off, each step's loss within ``PARITY_LOSS_RTOL`` of the card's fp32
+   step's from the same seeded weights and batches, launches exactly
+   ``QUALITY_PER_FORWARD`` per step with the kernels;
+7. serve: the same config and weights through the serving surface. The
    on-device preprocessing of the three cases against the host's scipy
    path (and its seconds per case against the host's), then on one
    device-preprocessed case the direct predictor plain, with flips and
@@ -42,7 +51,7 @@ Phases, one line each (or one line per checked shape):
    and a stats file on a watch directory of the three cases. Every counted
    run's launches must be its forwards' worth exactly; each path prints
    its seconds per case with the kernels and without;
-7. isensee: ``configs/fetal_isensee.json`` (Isensee2017, depth 5, 16 base
+8. isensee: ``configs/fetal_isensee.json`` (Isensee2017, depth 5, 16 base
    filters, InstanceNorm + LeakyReLU blocks, dropout 0.3, 3 deep-supervision
    heads) with random weights from a seed. Each of its kernel shapes with
    activation "none" at the serving batch 8, the train batch 6, the
@@ -57,7 +66,7 @@ Phases, one line each (or one line per checked shape):
    fused-decoder kernel runs with activation "none" before the norm. Every
    counted run's launches are exact: 6 / 8 / 0 per serving forward, 8 /
    10 / 0 per training forward, 6 / 4 / 3 for the U-Net;
-8. experiment: ``configs/fetal_unet.json`` at full width with ``distort``
+9. experiment: ``configs/fetal_unet.json`` at full width with ``distort``
    0.25 and ``rotate`` 15 through the experiment path's entry points, on
    six synthetic cases: ``train.main`` builds the dataset in the port's
    directory layout, writes the split, trains two epochs (the loss falls)
@@ -70,7 +79,7 @@ Phases, one line each (or one line per checked shape):
    an fp32 model); ``evaluate.main`` scores that tree and
    ``ensemble.main`` merges two probability trees. Launches exactly 6 / 4
    / 3 per forward of each counted run;
-9. scale: the same config on six cases, training at scale. ``train.main``
+10. scale: the same config on six cases, training at scale. ``train.main``
    for two epochs with ``device_case_cache`` "on" against "off" from the
    same seed and weights (per-epoch loss and dice within
    ``SCALE_METRIC_TOL``, beside the spread of two host-staged runs), every
@@ -90,7 +99,7 @@ Phases, one line each (or one line per checked shape):
    and the cache on for two epochs. Launches exactly 6 / 4 / 3 per forward
    of every counted run, the ranks' own included. A rank's non-zero exit
    or its time limit fails the script;
-10. spatial: multi-device inference and depth-axis spatial sharding on
+11. spatial: multi-device inference and depth-axis spatial sharding on
    the same config. One-device references (the direct predictor and the
    sliding window on three 128^3 cases, the peak memory of a whole-volume
    forward and of a train step); ``halo_exchange`` and ``all_gather_cat``
@@ -113,7 +122,7 @@ Phases, one line each (or one line per checked shape):
    odd at level 2 and are gathered whole there, against the direct
    predictor; then four ranks: the 2 x 2 hybrid step. Launches exactly 6 /
    4 / 3 per forward on every rank of every counted run;
-11. interop: both configs at full width through the Keras mapping
+12. interop: both configs at full width through the Keras mapping
    (``keras_export`` into a stand-in with Keras's ``layers`` /
    ``get_weights`` / ``set_weights`` surface, ``keras_import`` back: state
    dicts equal bit for bit; the imported U-Net serves the three cases with
@@ -128,7 +137,7 @@ Phases, one line each (or one line per checked shape):
    forward (none for a portable program), seconds per case and to load;
    and the host time of one launch through the public wrapper, the custom
    op alone and the ctypes launch alone;
-12. fold: space-to-depth folding of the full-resolution level at full
+13. fold: space-to-depth folding of the full-resolution level at full
    width, kernel switches on, bf16, weights from seed 0. The U-Net with
    each of ``FOLD_SETTINGS`` against the same weights unfolded, through
    the direct predictor and the sliding window on the three cases
@@ -145,12 +154,12 @@ Phases, one line each (or one line per checked shape):
    epoch with the fold, ``predict.main --direct`` from its checkpoint, and
    ``predict --export`` of the fold config, whose loaded program must be
    the unfolded program;
-13. native: the host library (``utils/native.py``) must build from the
+14. native: the host library (``utils/native.py``) must build from the
    port's ``native/fastloader.cpp`` and load; each entry point against
    numpy on a 160 x 160 x 110 case, with host microseconds; host-staged
    ``train_model`` patches/s with the library and with
    ``FETAL_TPU_NO_NATIVE=1``;
-14. quality: the recipe of ``tools/torch_parity_dice.py`` (the root
+15. quality: the recipe of ``tools/torch_parity_dice.py`` (the root
    ``parity_dice.py``'s: a depth-3, 8-filter U-Net on twelve whole 32^3
    synthetic volumes, batch 3, lr 5e-4) at its full 30 epochs, bf16 with
    both kernel switches on, through ``train.main``, ``predict.main`` and
@@ -164,7 +173,7 @@ Phases, one line each (or one line per checked shape):
    falls, label maps in {0, 1, 2, 4}). Launches exactly
    ``QUALITY_PER_FORWARD`` per train or validation step and per predicted
    batch. The full recipes are records the tools keep, not gates here;
-15. bench: ``python -m fetal_mri_segmentation_tpu_torch.bench --quick`` as
+16. bench: ``python -m fetal_mri_segmentation_tpu_torch.bench --quick`` as
    a subprocess with ``--kernels off`` and then ``on``: exit code 0, one
    JSON line with the root ``bench.py``'s quick names and
    ``detail.kernels``, a positive ``value``, ``detail.device`` the
@@ -976,6 +985,183 @@ def train_phase(torch, work: Path) -> dict:
           f"state reloaded into a fresh model with identical weights",
           flush=True)
     return launches
+
+
+# The parity phase: the port's bf16 training held where the JAX package
+# holds its own. tests/test_torch_bf16_parity.py holds the port's max-pool
+# tie gradients to JAX's on the CPU, bit for bit; here the card's must be
+# the CPU's, bit for bit, on the recipe's level-0 pool input with planted
+# ties (a window's gradient goes to its first maximum, a fold cell splits
+# it evenly). Then PARITY_STEPS bf16 steps of the multi-class recipe's
+# model (tools/torch_multiclass_quality.py: depth 3, 8 filters, sigmoid
+# over labels 1, 2, 4, weighted dice, batch 3 of 40^3, Keras Adam at lr
+# 5e-4), the kernels on and off, each beside the card's fp32 steps from
+# the same seeded weights and batches. The bound on each step's loss: on
+# the CPU, from these weights and on these batches, the JAX package's own
+# bf16 steps lie at most PARITY_JAX_REL (relative) from its fp32 steps
+# over the 10 (tools/bf16_parity_steps.py; the port's bf16 on the CPU lies
+# at most 0.0068 from them). The port's bf16 on the card may lie three
+# times as far: the kernel route's backward runs in fp32 and cuDNN sums in
+# other orders, and bf16 moves the pace of the descent most where it
+# steepens (from JAX's own PRNGKey(0) weights JAX's bf16 lies 0.099 from
+# its fp32 by step 9). A step that does not train (a wrong gradient, a
+# dropped layer) leaves the loss where it started, 0.72 of the fp32 loss
+# at step 9 away from it.
+PARITY_STEPS, PARITY_SIZE, PARITY_BATCH = 10, 40, 3
+PARITY_JAX_REL = 0.0232
+PARITY_LOSS_RTOL = 3 * PARITY_JAX_REL
+PARITY_LABELS = (1, 2, 4)
+
+
+def _tie_input(shape, seed=0):
+    """Values from {0, 0.5, 1, 1.5}, exact in bf16, so most 2^3 windows
+    hold a tied maximum; each channel's first window has its maximum at
+    window positions 3 and 5 alone, its second all eight equal."""
+    import numpy as np
+
+    x = np.random.default_rng(seed).integers(0, 4, size=shape).astype(
+        np.float32) / 2
+    first = np.zeros(8, np.float32)
+    first[[3, 5]] = 2.0
+    x[:, 0:2, 0:2, 0:2] = first.reshape(2, 2, 2)[None, ..., None]
+    x[:, 0:2, 0:2, 2:4] = 1.0
+    return x
+
+
+def _multiclass_batches(steps: int = PARITY_STEPS, size: int = PARITY_SIZE,
+                        batch: int = PARITY_BATCH, n_cases: int = 6):
+    """``steps`` channels-first batches of ``batch`` cases drawn from
+    ``n_cases`` multi-class cases of ``size``^3 (each volume normalized to
+    zero mean and unit variance), float32 numpy."""
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch.data.synthetic import (
+        make_multiclass_case)
+
+    xs, ys = [], []
+    for i in range(n_cases):
+        v, t = make_multiclass_case(shape=(size,) * 3, seed=i)
+        xs.append(((v - v.mean()) / v.std())[None])
+        ys.append(np.stack([t == lab for lab in PARITY_LABELS]))
+    x = np.stack(xs).astype(np.float32)
+    y = np.stack(ys).astype(np.float32)
+    order = np.random.default_rng(0)
+    return [(x[i], y[i]) for i in (order.choice(n_cases, batch,
+                                                replace=False)
+                                   for _ in range(steps))]
+
+
+def parity_phase(torch, work: Path, smi: str) -> dict:
+    """The max-pool tie gradients on the card against the CPU's (unfolded,
+    folds (2, 2, 2) and (1, 2, 2); fp32 and bf16; bit for bit), then
+    ``PARITY_STEPS`` bf16 steps of the multi-class recipe's model with the
+    kernels on and off beside the card's fp32 steps: every step's loss
+    within ``PARITY_LOSS_RTOL`` of the fp32 step's, the loss falling, the
+    kernels-on launches exactly ``QUALITY_PER_FORWARD`` per step."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.models.layers import max_pool_3d
+    from fetal_mri_segmentation_tpu_torch.ops.fold import fold, pool_folded
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    # 1. max pooling at ties: the recipe's level-0 pool input (batch 3,
+    # 16 channels of 40^3)
+    x = _tie_input((PARITY_BATCH, PARITY_SIZE, PARITY_SIZE, PARITY_SIZE,
+                    16))
+    cot = np.random.default_rng(1).standard_normal(
+        (PARITY_BATCH,) + (PARITY_SIZE // 2,) * 3 + (16,)).astype(
+            np.float32)
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for ff in (None, (2, 2, 2), (1, 2, 2)):
+            pool = (max_pool_3d if ff is None
+                    else functools.partial(pool_folded, factors=ff))
+            got = {}
+            for device in ("cpu", "cuda"):
+                xt = torch.from_numpy(x).to(device, dtype)
+                leaf = (xt if ff is None else fold(xt, ff)).requires_grad_()
+                out = pool(leaf)
+                (out.float() * torch.from_numpy(cot).to(device)
+                 ).sum().backward()
+                got[device] = (out.detach().cpu(), leaf.grad.cpu())
+            for a, b in zip(got["cpu"], got["cuda"]):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"max pool {ff or 'unfolded'} {dtype}: the card's "
+                        f"result is not the CPU's (max abs diff "
+                        f"{(a.float() - b.float()).abs().max().item()})")
+            g = got["cuda"][1].float()
+            checked.append(f"{ff or 'unfolded'} {str(dtype)[6:]} "
+                           f"({int((g != 0).sum())} of {g.numel()} "
+                           f"gradient entries nonzero)")
+    print("parity max-pool ties: the card's forward and gradient equal the "
+          "CPU's bit for bit: " + "; ".join(checked), flush=True)
+
+    # 2. bf16 steps of the multi-class recipe, kernels on and off, beside
+    # fp32 steps from the same weights and batches
+    base = Config(model_name="unet", depth=3, n_base_filters=8,
+                  patch_shape=(PARITY_SIZE,) * 3,
+                  image_shape=(PARITY_SIZE,) * 3,
+                  n_labels=len(PARITY_LABELS), labels=PARITY_LABELS,
+                  activation_name="sigmoid", batch_size=PARITY_BATCH,
+                  augment=False, include_label_wise_dice_coefficients=True,
+                  initial_learning_rate=5e-4, fold_level0="off",
+                  use_pallas_conv=True, use_pallas_dec0=True)
+    weights = from_flax(init_flax_like(base, seed=0))
+    batches = [(torch.from_numpy(bx).cuda(), torch.from_numpy(by).cuda())
+               for bx, by in _multiclass_batches()]
+
+    def steps(cfg):
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(weights)
+        state = create_train_state(model, cfg)
+        step = make_train_step(model, cfg)
+        return [float(step(state, bx, by)["loss"]) for bx, by in batches]
+
+    off = dict(use_pallas_conv=False, use_pallas_dec0=False)
+    losses, launches = {}, {}
+    for name, kw in (("fp32", dict(off, compute_dtype="float32")),
+                     ("bf16 on", {}), ("bf16 off", off)):
+        torch.backends.cudnn.allow_tf32 = name != "fp32"
+        losses[name], launches[name] = _counted(
+            torch, functools.partial(steps, dataclasses.replace(base, **kw)))
+        torch.backends.cudnn.allow_tf32 = True
+    want = {k: v * PARITY_STEPS for k, v in QUALITY_PER_FORWARD.items()}
+    ref = np.asarray(losses["fp32"])
+    worst = {}
+    for name in ("bf16 on", "bf16 off"):
+        rel = np.abs(np.asarray(losses[name]) - ref) / np.abs(ref)
+        worst[name] = (float(rel.max()), int(rel.argmax()))
+    print(f"parity {PARITY_STEPS} bf16 steps of the multi-class recipe "
+          f"({PARITY_BATCH} x {PARITY_SIZE}^3): loss per step fp32 "
+          + ", ".join(f"{v:.6g}" for v in losses["fp32"]) + "; "
+          + "; ".join(f"{name} " + ", ".join(f"{v:.6g}" for v in losses[name])
+                      + f" (largest relative distance from fp32 "
+                      f"{worst[name][0]:.6g} at step {worst[name][1]})"
+                      for name in worst)
+          + f"; bound {PARITY_LOSS_RTOL:.6g} (3 x JAX's {PARITY_JAX_REL}); "
+          f"launches {launches['bf16 on']} on, {launches['bf16 off']} off "
+          f"({smi})", flush=True)
+    for name, (rel, step) in worst.items():
+        if not rel <= PARITY_LOSS_RTOL:
+            raise AssertionError(f"parity {name}: step {step}'s loss "
+                                 f"{rel} from fp32's > {PARITY_LOSS_RTOL}")
+        if not losses[name][-1] < losses[name][0]:
+            raise AssertionError(f"parity {name}: the loss did not fall")
+    if launches["bf16 on"] != want or set(
+            launches["bf16 off"].values()) != {0}:
+        raise AssertionError(f"parity launches {launches}, not {want} / 0")
+    return launches["bf16 on"]
 
 
 def serve_phase(torch, work: Path) -> dict:
@@ -4188,6 +4374,8 @@ def main() -> None:
     seconds["kernels"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
+                        ("parity", lambda t, w: parity_phase(
+                            t, w, smi.splitlines()[0])),
                         ("serve", serve_phase), ("isensee", isensee_phase),
                         ("experiment", experiment_phase),
                         ("scale", lambda t, w: scale_phase(
@@ -4208,8 +4396,8 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as work:
             results[name] = phase(torch, Path(work))
         seconds[name] = time.perf_counter() - t0
-    (launches, train_launches, serve_launches, isensee, experiment,
-     scale, spatial, interop, fold, native_launches,
+    (launches, train_launches, parity_launches, serve_launches, isensee,
+     experiment, scale, spatial, interop, fold, native_launches,
      quality, bench) = results.values()
     print("phase seconds: " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in seconds.items())
@@ -4219,6 +4407,7 @@ def main() -> None:
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "train_launches": train_launches[name],
+                "parity_launches": parity_launches[name],
                 "serve_launches": {path: counts[name] for path, counts
                                    in serve_launches.items()},
                 "isensee_launches": {path: counts[name] for path, counts

@@ -649,12 +649,15 @@ def upsample_nearest(x: torch.Tensor,
 def max_pool_3d(x: torch.Tensor,
                 window: Tuple[int, int, int] = (2, 2, 2)) -> torch.Tensor:
     """MaxPooling3D, stride == window, VALID (a trailing remainder is
-    dropped), on NDHWC; the result stays contiguous NDHWC."""
-    B, D, H, W, C = x.shape
-    (wd, wh, ww), (d, h, w) = window, (D // window[0], H // window[1],
-                                        W // window[2])
-    x = x[:, :d * wd, :h * wh, :w * ww]
-    return x.reshape(B, d, wd, h, wh, w, ww, C).amax(dim=(2, 4, 6))
+    dropped), on NDHWC; the result stays contiguous NDHWC.
+
+    A window's gradient goes to its first maximum in row-major (d, h, w)
+    window order, as flax's ``nn.max_pool`` (``reduce_window``) sends it:
+    ``F.max_pool3d``'s indices are that first maximum, on the CPU and on
+    CUDA. The NCDHW view of contiguous NDHWC is channels-last 3D, which
+    the op takes as it lies."""
+    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), tuple(window), tuple(window))
+    return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 def head_activation(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:

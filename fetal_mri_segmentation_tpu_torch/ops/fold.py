@@ -283,17 +283,20 @@ def pool_folded(xf: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
 
     The per-cell max over the present sub-voxels, then a 2-window pool on
     the axes that are not folded. The output is UNFOLDED (the next level's
-    natural resolution), channels back to C."""
+    natural resolution), channels back to C. The gradient follows the JAX
+    package's: the per-cell max (``jnp.max``) splits it evenly among a
+    cell's tied sub-voxels, the window pool (``reduce_window``) sends it
+    to the first maximal cell of its window."""
     factors = _check_factors(factors)
     b, d, h, w, fc = xf.shape
     f1, f2, f3 = factors
     x = xf.reshape(b, d, h, w, f1, f2, f3, fc // (f1 * f2 * f3))
     x = x.amax(dim=(4, 5, 6))
-    # the axes not folded still need their 2-window pool (VALID)
-    d2, h2, w2 = (n if f == 2 else n // 2 for f, n in zip(factors, (d, h, w)))
-    x = x[:, :d2 * (3 - f1), :h2 * (3 - f2), :w2 * (3 - f3)]
-    x = x.reshape(b, d2, 3 - f1, h2, 3 - f2, w2, 3 - f3, x.shape[-1])
-    return x.amax(dim=(2, 4, 6))
+    # the axes not folded still need their 2-window pool (VALID); layers
+    # imports this module, so its pool is imported here
+    from fetal_mri_segmentation_tpu_torch.models.layers import max_pool_3d
+    window = tuple(3 - f for f in factors)
+    return max_pool_3d(x, window) if window != (1, 1, 1) else x
 
 
 def up_conv3_folded(x_deep: torch.Tensor, kernel_up: torch.Tensor,

@@ -24,9 +24,9 @@ and the patch-grid sharded predictors);
 ``bench.py`` refused too); and ``chip_smoke.py``
 exits non-zero without printing a result, in the repository and alone.
 The quality-loop tools (``tools/torch_parity_dice.py``,
-``torch_multiclass_quality.py``, ``torch_quality_loops.py`` and their
-``torch_quality_common.py``) import under the same refusals and make their
-recipes' configs."""
+``torch_multiclass_quality.py``, ``torch_quality_loops.py``,
+``torch_multiclass_sweep.py`` and their ``torch_quality_common.py``)
+import under the same refusals and make their recipes' configs."""
 
 import os
 import shutil
@@ -378,6 +378,7 @@ sys.meta_path.insert(0, Refuse())
 sys.path.insert(0, "tools")
 
 import torch_multiclass_quality
+import torch_multiclass_sweep
 import torch_parity_dice
 import torch_quality_common
 import torch_quality_loops
@@ -391,6 +392,7 @@ assert all(c.use_pallas_conv and c.use_pallas_dec0 for c in configs)
 torch_quality_common.zero_launches()
 assert set(torch_quality_common.read_launches().values()) == {0}
 assert torch_quality_common.card("cpu") == "cpu"
+assert torch_multiclass_sweep.parse_runs(["on:0-1"]) == [("on", 0), ("on", 1)]
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 assert not loaded, loaded
 print("tools ok")

@@ -5,6 +5,7 @@ on the GPU by default.
 
     python tools/torch_multiclass_quality.py [--out-dir DIR] [--epochs 500]
         [--softmax] [--distort F] [--device cuda] [--seed 0] [--kernels-off]
+        [--compute-dtype {bfloat16,float32}]
 
 Synthetic 3-structure volumes (``data/synthetic.py::
 write_multiclass_dataset``: disjoint ellipsoids labelled 1, 2 and 4), 24
@@ -21,13 +22,17 @@ tool's 40.
 
 Writes ``<out-dir>/summary.json`` with the JAX tool's keys (each label's
 and the region's (mean, min) held-out hard Dice, ``train_wall_s``,
-``distort``) plus the seconds of each entry point and the kernels'
+``distort``) plus pass or fail, the compute dtype, the best validation
+loss's epoch and the collapse epoch (``torch_quality_common.py::
+curve_record``), the seconds of each entry point and the kernels'
 launches, and prints the JAX tool's PASS line when every mean is at least
 0.95. ``--n-cases`` and ``--image-size`` shrink the run for tests.
 ``--seed`` (the recipe: 0) seeds the split, the initial weights, the batch
-order and the augmentation, and ``--kernels-off`` runs the same recipe on
-the stock convolutions: both read how far a result is the recipe's spread
-and how far the kernels'.
+order and the augmentation, ``--kernels-off`` runs the same recipe on the
+stock convolutions and ``--compute-dtype float32`` in fp32 on the stock
+convolutions (the recipe: bf16, the Config default; the kernels run in
+bf16 only): they read how far a result is the recipe's spread, how far
+the kernels' and how far bf16's.
 """
 
 from __future__ import annotations
@@ -96,11 +101,15 @@ def summarize(rows: dict, regions: dict) -> dict:
 def main(out_dir: str, epochs: int, softmax: bool = False,
          distort: float = None, device: str = "cuda",
          n_cases: int = N_CASES, image=IMAGE, seed: int = 0,
-         kernels_off: bool = False) -> dict:
+         kernels_off: bool = False,
+         compute_dtype: str = "bfloat16") -> dict:
     from fetal_mri_segmentation_tpu_torch.data.synthetic import (
         write_multiclass_dataset)
 
     os.makedirs(out_dir, exist_ok=True)
+    # the Hopper kernels run in bf16 only (models.build_model refuses them
+    # on the card in fp32)
+    kernels_off = kernels_off or compute_dtype != "bfloat16"
     smi = common.card(device)
     print(smi, flush=True)
     cases_dir = os.path.join(out_dir, "cases")
@@ -110,6 +119,7 @@ def main(out_dir: str, epochs: int, softmax: bool = False,
     if kernels_off:
         cfg = dataclasses.replace(cfg, use_pallas_conv=False,
                                   use_pallas_dec0=False)
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     cfg.save(os.path.join(out_dir, "config.json"))
     # merged-region row beside the per-label Dice: the union mask scores
     # nested structures robustly to the argmax failure (docs/PARITY.md,
@@ -124,6 +134,7 @@ def main(out_dir: str, epochs: int, softmax: bool = False,
     print(f"train wall: {train_wall:.1f} s (distort={distort})")
 
     summary = summarize(run["rows"], regions)
+    ok = all(m >= PASS_MEAN for m, _ in summary.values())
     print(f"\nheld-out cases: {len(run['rows'])}")
     for key, (mean, low) in summary.items():
         what = f"label {key}" if key.isdigit() else key.replace("_", " ", 1)
@@ -131,12 +142,13 @@ def main(out_dir: str, epochs: int, softmax: bool = False,
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump({**summary, "train_wall_s": round(train_wall, 1),
                    "distort": distort, "epochs": epochs, "seed": seed,
-                   "kernels": not kernels_off, "device": smi,
+                   "kernels": not kernels_off,
+                   "compute_dtype": compute_dtype, "passed": ok,
+                   **common.curve_record(cfg.training_log), "device": smi,
                    "seconds": {k: round(v, 1)
                                for k, v in run["seconds"].items()},
                    "launches": run["launches"]}, f, indent=1)
     print(common.launch_line(run["launches"]))
-    ok = all(m >= PASS_MEAN for m, _ in summary.values())
     print("PASS: all labels >= 0.95 mean held-out dice" if ok
           else "BELOW TARGET")
     return summary
@@ -164,8 +176,12 @@ if __name__ == "__main__":
                          "and the augmentation (the recipe: 0)")
     ap.add_argument("--kernels-off", action="store_true",
                     help="both kernel switches off (stock convolutions)")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"),
+                    help="compute dtype (the recipe: bfloat16; float32 "
+                         "turns the kernel switches off)")
     args = ap.parse_args()
     main(args.out_dir, args.epochs, softmax=args.softmax,
          distort=args.distort, device=args.device, n_cases=args.n_cases,
          image=(args.image_size,) * 3, seed=args.seed,
-         kernels_off=args.kernels_off)
+         kernels_off=args.kernels_off, compute_dtype=args.compute_dtype)

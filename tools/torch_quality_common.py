@@ -12,9 +12,13 @@ same functions).
   them, or "cpu";
 - :func:`run_mains`: one experiment through the port's three entry points,
   ``train.main`` -> ``predict.main`` over the validation split ->
-  ``evaluate.main``, with the seconds and the launches of each.
+  ``evaluate.main``, with the seconds and the launches of each;
+- :func:`curve_record`: the best validation loss's epoch and the collapse
+  epoch, if any, of a training log (``tools/multiclass_quality_seeds.py``
+  reads the JAX package's logs with it too).
 
-Nothing here imports the JAX package.
+Nothing here imports the JAX package, and nothing at import time imports
+the port.
 """
 
 from __future__ import annotations
@@ -74,6 +78,25 @@ def log_rows(path: str) -> list:
     """The training log's rows (``train_model``'s CSV)."""
     with open(path) as f:
         return list(csv.DictReader(f))
+
+
+def curve_record(path: str, rise: float = 0.3, hold: int = 25) -> dict:
+    """The best validation loss and its epoch, and the collapse epoch: the
+    first epoch whose training loss lies more than ``rise`` above the best
+    training loss so far and stays there for ``hold`` epochs (None where
+    no epoch does)."""
+    rows = log_rows(path)
+    loss = [float(r["loss"]) for r in rows]
+    val = [float(r["val_loss"]) for r in rows]
+    best_val = min(range(len(val)), key=val.__getitem__)
+    collapse = None
+    for e in range(len(loss) - hold + 1):
+        floor = min(loss[:e + 1])
+        if all(loss[t] - floor > rise for t in range(e, e + hold)):
+            collapse = int(rows[e]["epoch"])
+            break
+    return {"best_val_epoch": int(rows[best_val]["epoch"]),
+            "best_val_loss": val[best_val], "collapse_epoch": collapse}
 
 
 def run_mains(config, cases_dir: str, out_dir: str, labels, *,
