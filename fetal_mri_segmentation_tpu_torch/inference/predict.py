@@ -11,7 +11,10 @@ predicts one case and writes the JAX package's per-case tree:
 the probability map). ``predict_cases_pipelined`` writes the same trees
 for a sequence of cases with two stages in flight: case i+1's host
 preprocessing and upload run while case i computes on the device, and
-every NIfTI write runs on one worker thread.
+every NIfTI write runs on one worker thread. While a profiler runs, one
+case is one request of ``utils/profiling.py`` from its ``ingest.case``
+span through the sliding window's spans to its prediction's
+``ingest.write`` on that thread.
 
 ``run_validation_cases`` predicts every case of the validation split
 from the dataset (``data/build.py``, already preprocessed) into
@@ -57,6 +60,8 @@ from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load
 from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti, save_nifti
 from fetal_mri_segmentation_tpu_torch.utils.params import (
     OPT_PREFIX, from_flax)
+from fetal_mri_segmentation_tpu_torch.utils.profiling import (
+    request_of, span, tag)
 from fetal_mri_segmentation_tpu_torch.utils.residency import (
     _QUANT_SCALE, resolve_prob_transfer)
 
@@ -118,7 +123,27 @@ def preprocess_case(input_path: str, config, *, crop: bool = True,
     preprocessor's dtype with ``device_pre``), the build-adjusted affine
     and the resampled truth NiftiImage or None. With ``device_pre`` the
     host only reads and crops; the truth is still resampled on the host
-    (order 0 is cheap and keeps its bytes identical to the host path)."""
+    (order 0 is cheap and keeps its bytes identical to the host path).
+
+    One ``ingest.case`` span (a request of its own) around
+    ``ingest.read`` (the files read and decompressed) and, on the host
+    path, ``ingest.resample`` (``utils/geometry.py::
+    process_case_images``); ``data`` is tagged with the case's request,
+    which the predictor and the write join."""
+    with span("ingest.case"):
+        data, affine, truth_image = _preprocess_case(
+            input_path, config, crop=crop, global_moments=global_moments,
+            device_pre=device_pre)
+        return tag(data), affine, truth_image
+
+
+def _read_files(paths):
+    with span("ingest.read"):
+        return [load_nifti(f) for f in paths]
+
+
+def _preprocess_case(input_path: str, config, *, crop: bool,
+                     global_moments, device_pre):
     files, truth_file = resolve_case_files(input_path, config)
     all_files = files + ([truth_file] if truth_file else [])
     # explicit: without a truth file the default ("last file is the label")
@@ -145,7 +170,7 @@ def preprocess_case(input_path: str, config, *, crop: bool = True,
                 "global_moments passed to preprocess_case — build the "
                 "DevicePreprocessor with the same training moments")
         cropped = process_case_images(
-            [load_nifti(f) for f in all_files], image_shape=None, crop=crop,
+            _read_files(all_files), image_shape=None, crop=crop,
             label_indices=label_indices)
         old_shape = tuple(cropped[0].shape[:3])
         affine = (zoomed_affine(cropped[0].affine, old_shape,
@@ -165,7 +190,7 @@ def preprocess_case(input_path: str, config, *, crop: bool = True,
     if config.normalization == "global" and global_moments is None:
         raise ValueError(_GLOBAL_MOMENTS)
     images = process_case_images(
-        [load_nifti(f) for f in all_files], image_shape=config.image_shape,
+        _read_files(all_files), image_shape=config.image_shape,
         crop=crop, label_indices=label_indices)
     data = np.stack([img.get_fdata(dtype=np.float32)
                      for img in images[:len(files)]], axis=0)
@@ -303,12 +328,27 @@ def _msg_submit(submit, msg):
     return write_submit
 
 
+def _span_submit(submit, request):
+    """Wrap ``submit`` so each queued write runs in an ``ingest.write``
+    span of ``request`` (the case's, carried to the IO worker)."""
+    if request is None:
+        return submit
+
+    def write_submit(target, fn, *a, **kw):
+        def run():
+            with span("ingest.write", request=request):
+                fn(*a, **kw)
+        submit(target, run)
+    return write_submit
+
+
 def _drive_label_pipeline(case_stream, predictor, config, threshold,
                           submit) -> int:
     def finalize(p):
         out_dev, out_dir, affine, msg = p
+        write = _span_submit(_msg_submit(submit, msg), request_of(out_dev))
         _write_prediction(predictor.unpack_labels(out_dev), config, out_dir,
-                          affine, _msg_submit(submit, msg))
+                          affine, write)
 
     return _drive_pipeline(
         case_stream,
@@ -326,13 +366,14 @@ def _drive_prob_pipeline(case_stream, predictor, config, submit,
 
     def finalize(p):
         out_dev, out_dir, affine, msg = p
+        write = _span_submit(_msg_submit(submit, msg), request_of(out_dev))
         if kind in _QUANT_SCALE:
             _write_probability(out_dev.cpu().numpy(), config, out_dir,
-                               affine, _msg_submit(submit, msg),
+                               affine, write,
                                scl_slope=1.0 / _QUANT_SCALE[kind])
             return
         _write_probability(predictor.unpack_prob(out_dev), config, out_dir,
-                           affine, _msg_submit(submit, msg))
+                           affine, write)
 
     return _drive_pipeline(
         case_stream,

@@ -23,6 +23,14 @@ stage_to_device``); a tensor already on the card is used in place. The
 ``*_async`` calls enqueue the whole volume's work and return device tensors
 without a synchronization; ``unpack_*`` copies the result to the host.
 
+Spans (``utils/profiling.py``, recorded while a profiler runs): one
+``window.case`` a volume, around ``window.stage`` (upload, pad, NDHWC
+copy), per patch batch ``window.gather`` (the stack of its patches),
+``window.model`` (the forward and its TTA members) and
+``window.overlap_add`` (the weighting and the in-place adds), and
+``window.finish`` (the division, the crop and the label map or transfer
+cast); ``window.fetch`` around ``unpack_*``, under the case's request.
+
 The patch grid is walked in batches of ``patch_batch_size`` corners, and
 :meth:`SlidingWindowPredictor.accumulate` adds any range of those batches
 into an accumulator: ``parallel/distributed.py::make_sharded_predictor``
@@ -44,6 +52,8 @@ from fetal_mri_segmentation_tpu_torch.ops.patches import (
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 from fetal_mri_segmentation_tpu_torch.utils.packing import (
     device_label_map, host_label_map)
+from fetal_mri_segmentation_tpu_torch.utils.profiling import (
+    request_of, span, tag)
 from fetal_mri_segmentation_tpu_torch.utils.residency import (
     normalize_tta_mode, stage_to_device, transfer_prob, unpack_prob_f32)
 
@@ -166,30 +176,43 @@ class SlidingWindowPredictor:
         P = self.patch_batch_size
         for i in batches:
             batch = self.corners[i * P:(i + 1) * P]
-            patches = torch.stack([vol[self._window(c)] for c in batch])
-            preds = self._apply(patches) * self.weight_map
-            for c, pred in zip(batch, preds):
-                acc[self._window(c)] += pred
+            with span("window.gather"):
+                patches = torch.stack([vol[self._window(c)] for c in batch])
+            with span("window.model"):
+                preds = self._apply(patches)
+            with span("window.overlap_add"):
+                preds = preds * self.weight_map
+                for c, pred in zip(batch, preds):
+                    acc[self._window(c)] += pred
         return acc
+
+    def _predict(self, data_cdhw, finish) -> torch.Tensor:
+        """``finish`` of the fp32 probabilities (L, D, H, W) of one volume,
+        on the device; enqueued without a synchronization, as one
+        ``window.case`` span (a request of its own, or the one the volume
+        was tagged with). The module is put in eval mode, on whole patches,
+        here at every prediction (a train step on the same module leaves it
+        in training mode, a depth-sharded one with a spatial group), as the
+        JAX predictor applies with ``train=False`` whatever ran before."""
+        with span("window.case", request=request_of(data_cdhw)):
+            self.model.eval()
+            set_spatial_group(self.model, None)
+            with span("window.stage"):
+                vol = self._stage_volume(data_cdhw)
+            acc = self.accumulate(vol, self.share)
+            if self.group is not None:
+                torch.distributed.all_reduce(acc, group=self.group)
+            with span("window.finish"):
+                prob = acc / self.weight_sum
+                crop = tuple(slice(int(b), int(b) + s) for b, s in
+                             zip(self.pad_before, self.image_shape))
+                return tag(finish(prob[crop].permute(3, 0, 1, 2)))
 
     @torch.inference_mode()
     def predict_probabilities(self, data_cdhw) -> torch.Tensor:
         """(C, D, H, W) -> fp32 probabilities (L, D, H, W) on the device;
-        enqueued without a synchronization. The module is put in eval
-        mode, on whole patches, here at every prediction (a train step on
-        the same module leaves it in training mode, a depth-sharded one
-        with a spatial group), as the JAX predictor applies with
-        ``train=False`` whatever ran before."""
-        self.model.eval()
-        set_spatial_group(self.model, None)
-        vol = self._stage_volume(data_cdhw)
-        acc = self.accumulate(vol, self.share)
-        if self.group is not None:
-            torch.distributed.all_reduce(acc, group=self.group)
-        prob = acc / self.weight_sum
-        crop = tuple(slice(int(b), int(b) + s)
-                     for b, s in zip(self.pad_before, self.image_shape))
-        return prob[crop].permute(3, 0, 1, 2)
+        enqueued without a synchronization."""
+        return self._predict(data_cdhw, lambda prob: prob)
 
     def __call__(self, data_cdhw) -> np.ndarray:
         """(C, D, H, W) -> probabilities (L, D, H, W), float32 on the host."""
@@ -201,12 +224,13 @@ class SlidingWindowPredictor:
         """Enqueue the label map of one volume and return it on the device
         without waiting (``utils/packing.py::device_label_map``); finish
         with :meth:`unpack_labels`."""
-        return device_label_map(self.predict_probabilities(data_cdhw),
-                                threshold, self.n_labels, self.config.labels)
+        return self._predict(data_cdhw, lambda prob: device_label_map(
+            prob, threshold, self.n_labels, self.config.labels))
 
     def unpack_labels(self, out) -> np.ndarray:
         """An async label map on the host (the D2H copy waits for it)."""
-        return host_label_map(out, self.n_labels, self.config.labels)
+        with span("window.fetch", request=request_of(out)):
+            return host_label_map(out, self.n_labels, self.config.labels)
 
     def predict_labels(self, data_cdhw, threshold: float = 0.5) -> np.ndarray:
         """(C, D, H, W) -> label map (D, H, W), computed on the device.
@@ -224,9 +248,10 @@ class SlidingWindowPredictor:
         (float32, float16 within 4.9e-4, or fixed-point uint8 / uint16
         within 2.0e-3 / 7.6e-6, ``utils/residency.py``) and return it on the
         device without waiting; finish with :meth:`unpack_prob`."""
-        return transfer_prob(self.predict_probabilities(data_cdhw),
-                             transfer_dtype)
+        return self._predict(
+            data_cdhw, lambda prob: transfer_prob(prob, transfer_dtype))
 
     def unpack_prob(self, out) -> np.ndarray:
         """An async probability map as float32 (L, D, H, W) on the host."""
-        return unpack_prob_f32(out)
+        with span("window.fetch", request=request_of(out)):
+            return unpack_prob_f32(out)

@@ -37,12 +37,16 @@ cards than ranks (over gloo: a check of the multi-rank path, no speed-up).
 ``--init-params FILE.npz`` starts from the variables, and the Adam moments
 when the file holds them, that ``tools/export_params_npz.py`` wrote from a
 checkpoint of the JAX package. ``--profile LOGDIR`` writes a
-``torch.profiler`` trace of the run. ``--smoke`` trains a tiny model for
-two epochs on synthetic cases it writes itself. ``--from-keras MODEL_H5``
-takes the architecture, the weights and, where the file holds them, the
-Adam state from a reference Keras ``.h5`` (``utils/keras_migrate.py``;
-needs h5py); it refuses to run over an existing checkpoint without
-``--overwrite``, as the root ``train.py`` does.
+``torch.profiler`` Chrome trace of the run (``*.pt.trace.json``, with the
+port's ``fetal.train.*`` ranges) and the port's span records beside it
+(``*.spans.json``: name, request, start, end and host ms of each
+``train.step`` and its phases; ``utils/profiling.py``). ``--smoke``
+trains a tiny model for two epochs on synthetic cases it writes itself.
+``--from-keras MODEL_H5`` takes the architecture, the weights and, where
+the file holds them, the Adam state from a reference Keras ``.h5``
+(``utils/keras_migrate.py``; needs h5py); it refuses to run over an
+existing checkpoint without ``--overwrite``, as the root ``train.py``
+does.
 """
 
 from __future__ import annotations
@@ -367,7 +371,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="synthetic end-to-end smoke run")
     ap.add_argument("--profile", metavar="LOGDIR", default=None,
-                    help="write a torch.profiler trace of training")
+                    help="write a torch.profiler Chrome trace of "
+                         "training (*.pt.trace.json) and the port's spans "
+                         "of each train step beside it (*.spans.json)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed for init, patch sampling and augmentation")
     ap.add_argument("--init-params", metavar="FILE_NPZ", default=None,

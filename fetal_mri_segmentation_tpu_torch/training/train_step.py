@@ -4,7 +4,12 @@
 One train step: augmentation on the device (``ops/augment.py``), the
 forward pass (through the Hopper kernels where the config switches them on),
 the dice loss, the backward pass and the Keras-style Adam update, with no
-host round trip: the metrics stay on the device as 0-d tensors.
+host round trip: the metrics stay on the device as 0-d tensors. While a
+profiler runs, a step is one ``train.step`` span (a request of
+``utils/profiling.py``) around ``train.augment`` (the batch's cast, the
+augmentation and the dropout masks), ``train.forward`` (the loss
+included), ``train.backward`` (the gradient sum across ranks included)
+and ``train.update`` (the optimizer's step).
 
 Batches are channels-first ``(B, C, D, H, W)`` at the boundary; the step
 transposes to the model's NDHWC and back. x may arrive as bf16 and y as
@@ -55,6 +60,7 @@ from fetal_mri_segmentation_tpu_torch.ops.dice import (
     dice_coefficient, weighted_dice_coefficient_loss)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
     sum_gradients)
+from fetal_mri_segmentation_tpu_torch.utils.profiling import span
 
 
 def get_loss_fn(config) -> Callable:
@@ -127,35 +133,45 @@ def make_train_step(model, config, *,
         isinstance(m, BatchNorm) for m in model.modules())
 
     def step(state, x, y, n_valid=None):
-        x, y = _entry(model, x, y)
-        if do_augment:
-            x, y = augment_batch(generator, x, y, flip=config.flip,
-                                 permute=config.permute,
-                                 contrast=config.contrast,
-                                 scale_deviation=config.distort,
-                                 rotate=config.rotate)
-        sample_mask = _sample_mask(x, n_valid)
-        model.train()
-        masks = (model.dropout_masks(x.shape[0], generator, x.device)
-                 if needs_dropout else None)
-        rows = None
-        if partition is not None:
-            rows = partition.row_range(x.shape[0])
-            x, y = partition.shard(x, y)
-            if masks is not None:
-                masks = [m[rows[0]:rows[0] + x.shape[0]] for m in masks]
-        if remat:
-            pred = checkpoint(_forward, model, x, masks, use_reentrant=False)
-        else:
-            pred = _forward(model, x, masks)
-        loss = loss_fn(y, pred, sample_mask, axis_name, rows)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if axis_name is not None:
-            # summed, not averaged: each rank holds its share of the global
-            # loss's gradient (DistributedDataParallel would divide by N)
-            sum_gradients(list(model.parameters()), axis_name)
-        state.optimizer.step()
+        with span("train.step"):
+            return phases(state, x, y, n_valid)
+
+    def phases(state, x, y, n_valid):
+        with span("train.augment"):
+            x, y = _entry(model, x, y)
+            if do_augment:
+                x, y = augment_batch(generator, x, y, flip=config.flip,
+                                     permute=config.permute,
+                                     contrast=config.contrast,
+                                     scale_deviation=config.distort,
+                                     rotate=config.rotate)
+            sample_mask = _sample_mask(x, n_valid)
+            model.train()
+            masks = (model.dropout_masks(x.shape[0], generator, x.device)
+                     if needs_dropout else None)
+            rows = None
+            if partition is not None:
+                rows = partition.row_range(x.shape[0])
+                x, y = partition.shard(x, y)
+                if masks is not None:
+                    masks = [m[rows[0]:rows[0] + x.shape[0]] for m in masks]
+        with span("train.forward"):
+            if remat:
+                pred = checkpoint(_forward, model, x, masks,
+                                  use_reentrant=False)
+            else:
+                pred = _forward(model, x, masks)
+            loss = loss_fn(y, pred, sample_mask, axis_name, rows)
+        with span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if axis_name is not None:
+                # summed, not averaged: each rank holds its share of the
+                # global loss's gradient (DistributedDataParallel would
+                # divide by N)
+                sum_gradients(list(model.parameters()), axis_name)
+        with span("train.update"):
+            state.optimizer.step()
         state.step += 1
         with torch.no_grad():
             metrics = _metrics(config, loss.detach(), y, pred.detach(),

@@ -23,6 +23,7 @@ import numpy as np
 from scipy import ndimage
 
 from fetal_mri_segmentation_tpu_torch.utils.nifti import NiftiImage
+from fetal_mri_segmentation_tpu_torch.utils.profiling import span
 
 
 def ensure_3d(data: np.ndarray, origin: str = "volume") -> np.ndarray:
@@ -201,7 +202,9 @@ def process_case_images(images, image_shape: Optional[Sequence[int]] = None,
     paths, but each file is decompressed exactly ONCE — the serving hot
     path reads a gzipped case only one time (inference/predict.py::
     predict_case). ``label_indices`` follows read_image_files' convention
-    (None = last image is the label; [] = no labels).
+    (None = last image is the label; [] = no labels). The resample, given
+    ``image_shape``, is the span ``ingest.resample`` (``utils/
+    profiling.py``).
     """
     label_set = set(label_indices if label_indices is not None
                     else [len(images) - 1])
@@ -213,15 +216,15 @@ def process_case_images(images, image_shape: Optional[Sequence[int]] = None,
     images = [img if arr.shape == tuple(img.shape)
               else NiftiImage(arr, img.affine)
               for img, arr in zip(images, arrays)]
-    slices = _union_crop(arrays, pad=pad) if crop else None
-    out = []
-    for i, (img, arr) in enumerate(zip(images, arrays)):
-        if slices is not None:
-            img = NiftiImage(arr[slices], crop_affine(img.affine, slices))
-        if (image_shape is not None
-                and tuple(img.shape[:3]) != tuple(image_shape)):
-            img = resample_to_shape(
-                img, image_shape,
-                "nearest" if i in label_set else "linear")
-        out.append(img)
-    return out
+    if crop:
+        slices = _union_crop(arrays, pad=pad)
+        images = [NiftiImage(arr[slices], crop_affine(img.affine, slices))
+                  for img, arr in zip(images, arrays)]
+    if image_shape is None:
+        return images
+    with span("ingest.resample"):
+        return [img if tuple(img.shape[:3]) == tuple(image_shape)
+                else resample_to_shape(
+                    img, image_shape,
+                    "nearest" if i in label_set else "linear")
+                for i, img in enumerate(images)]

@@ -359,15 +359,23 @@ def test_smoke_run_and_profile_trace(tmp_path, capsys):
     assert (d / "model.ckpt").exists() and (d / "config.json").exists()
     with open(d / "training.log") as f:
         assert len(list(csv.DictReader(f))) == 2
-    # --profile LOGDIR writes one trace file
+    # --profile LOGDIR writes one trace file, and the port's spans of the
+    # same run beside it
     cfg = Config.load(str(d / "config.json"))
     cfg.n_epochs = 1
     entry.main(cfg, str(d / "cases"), overwrite=True, verbose=False,
                profile_dir=str(tmp_path / "prof"), device="cpu")
-    traces = list((tmp_path / "prof").glob("*.json"))
+    traces = list((tmp_path / "prof").glob("*.pt.trace.json"))
     assert len(traces) == 1
     with open(traces[0]) as f:
         assert json.load(f)["traceEvents"]
+    spans = list((tmp_path / "prof").glob("*.spans.json"))
+    assert [s.name for s in spans] == [
+        traces[0].name.replace(".pt.trace.json", ".spans.json")]
+    with open(spans[0]) as f:
+        names = {s["name"] for s in json.load(f)}
+    assert {"train.step", "train.forward", "train.backward",
+            "train.update"} <= names
 
 
 def test_cli_parses():

@@ -10,9 +10,12 @@ with both off, and predicts one synthetic preprocessed volume with
 ``SlidingWindowPredictor.
 predict_labels`` (one warm-up, then three timed runs, then one run under
 ``torch.profiler``). Prints, for each: host seconds per case (ending in a
-synchronize), device-busy seconds from the profiler's CUDA kernel times, the
-idle share, and the kernels with the most device time. ``--trace-dir``
-also writes the Chrome traces.
+synchronize); the port's spans of the profiled case
+(``fetal_mri_segmentation_tpu_torch/utils/profiling.py``: per span name
+its count, its host ms and the device ms of the operations launched
+inside it, summed); the kernels with the most device time, and the host
+ops that launched them. ``--trace-dir`` also
+writes the Chrome traces.
 """
 
 from __future__ import annotations
@@ -28,14 +31,36 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def print_spans(records, device: dict, label: str, unit: str) -> None:
+    """Per span name of ``records`` (``utils/profiling.py::span_records``):
+    the count, the host ms summed, and the device ms of the operations
+    launched inside (``device``, from ``span_device_ms``), in the order
+    the names first ended; then the device ms launched outside every
+    span."""
+    rows = {}
+    for r in records:
+        count, host = rows.get(r["name"], (0, 0.0))
+        rows[r["name"]] = (count + 1, host + r["host_ms"])
+    print(f"{label}: the port's spans of the profiled {unit} "
+          "(count, host ms, device ms launched inside)")
+    for name, (count, host) in rows.items():
+        print(f"  {name:24s} {count:6d} {host:10.3f} "
+              f"{device.get(name, 0.0):10.3f}")
+    print(f"  {'(outside every span)':24s} {'':6s} {'':10s} "
+          f"{device.get(None, 0.0):10.3f}")
+
+
 def profile(run, label: str, trace_dir=None, top: int = 12,
             unit: str = "case"):
     """Time ``run()`` (one warm-up, three timed calls ending in a
-    synchronize), then profile one call and print the device-busy time,
-    the idle share and the kernels with the most device time."""
+    synchronize), then profile one call and print the port's spans of it
+    and the kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+
+    from fetal_mri_segmentation_tpu_torch.utils.profiling import (
+        reset_spans, span_device_ms, span_records)
 
     run()
     torch.cuda.synchronize()
@@ -44,20 +69,22 @@ def profile(run, label: str, trace_dir=None, top: int = 12,
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3
+    reset_spans()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    print(f"{label}: {wall:.4f} s/{unit} (host clock, 3 runs)")
+    print_spans(span_records(),
+                span_device_ms(prof.profiler.kineto_results.events()),
+                label, unit)
     events = prof.key_averages()
-    # device kernels; a user annotation (the optimizer's step range) spans
-    # kernels already counted
+    # device kernels; a user annotation (a span's range) spans kernels
+    # already counted
     rows = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
-    busy_us = sum(e.self_device_time_total for e in rows)
-    print(f"{label}: {wall:.4f} s/{unit} (host clock, 3 runs); device busy "
-          f"{busy_us / 1e6:.4f} s in the profiled run; idle share "
-          f"{1 - busy_us / 1e6 / wall:.3f}")
+    print(f"{label}: kernels by device time")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:6d} calls  {e.key[:120]}")

@@ -10,9 +10,11 @@ with both off, and runs the port's train step (augmentation, dropout,
 forward, dice loss, backward, Adam) on one synthetic batch of the config's
 patches: one warm-up step, three timed steps, then one step under
 ``torch.profiler``. Prints, for each: host
-seconds per step (ending in a synchronize), device-busy seconds from the
-profiler's CUDA kernel times, the idle share, and the kernels with the
-most device time. ``--trace-dir`` also writes the Chrome traces.
+seconds per step (ending in a synchronize); the port's spans of the
+profiled step (``train.step`` and its phases ``train.augment``,
+``train.forward``, ``train.backward``, ``train.update``: count, host ms
+and the device ms launched inside); the kernels with the most device
+time, and the host ops that launched them. ``--trace-dir`` also writes the Chrome traces.
 """
 
 from __future__ import annotations
