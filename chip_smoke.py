@@ -190,6 +190,25 @@ bound (the larger of its operations over the bf16 peak and its bytes over
 the HBM rate) and the time of one cuDNN convolution on the same inputs
 (``library_ms``).
 
+The norm phase, after the kernel phase, holds the fused InstanceNorm +
+activation (``ops/instance_norm.py``, two launches a call) to its plain
+twin at every norm shape of Isensee2017's serving forward (``NORM_SHAPES``:
+levels 0-4 at the batch of 8 and the last batch of 3, level 0 folded (1,
+1, 2)) and at the U-Net's InstanceNorm blocks of 32 and 64 channels, each
+(sample, channel) with its own offset, spread and ramp, every element
+within ``NORM_REL_TOL`` of its value plus ``NORM_ABS_TOL``, two launches a
+call; prints each shape's ms against the old composite's
+(``InstanceNorm._composite``) and its bound (6 bytes an element over the
+HBM rate); the host microseconds of one norm call, fused and composite;
+and one batch-8 forward of ``configs/fetal_isensee.json`` with the fused
+norms against the composite (probabilities within ``NORM_PROB_TOL``, 54
+launches), both timed, each held to an fp32 model on the composite (the
+fused no further from it than twice the composite, or ``PROB_TOL``). The
+isensee phase counts the fused norm's launches of its serving predictors
+(``NORM_LAUNCHES`` a forward: 216 a sliding-window case), and the
+``kernels`` line carries an ``instance_norm_act`` entry with the norm
+phase's shapes (``ms``, ``bound_ms``) and those counts.
+
 Then one JSON line describing the kernels, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; without CUDA it exits non-zero before printing any result.
@@ -198,6 +217,7 @@ non-zero; without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -246,6 +266,32 @@ NORM_PROB_TOL = 5e-2
 # the full 700 W power limit): bf16 tensor cores and HBM3. A kernel's bound
 # is the larger of its operations and its bytes over these.
 PEAK_BF16_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+
+# Norm phase tolerance, the fused kernel against its plain twin, element by
+# element: |y - ref| <= NORM_REL_TOL * |ref| + NORM_ABS_TOL. The two take
+# the same fp32 formula with the moments summed in another order, so their
+# fp32 values differ by ~1e-6 of the terms; where they straddle a bf16
+# rounding boundary the outputs differ by one bf16 step (2^-7 of the value
+# at most), and the LeakyReLU's product rounds once more. The input gives
+# each (sample, channel) its own offset, spread and ramp along the rows, so
+# every statistics chunk has its own mean. A CPU model of the kernel's
+# chunks at these shapes reads at most 0.49 of this tolerance in bf16 and
+# 0.007 in fp32, and with one chunk dropped at least 3.6 of it, with
+# another channel's or sample's moments at least 1e4.
+NORM_REL_TOL, NORM_ABS_TOL = 2 ** -6, 1e-3
+# (label, (batch, D, H, W), last axis, channels): Isensee2017's norms on
+# 64^3 patches (16 base filters) at the serving batch of 8 and the last
+# batch of 3 a case, level 0 folded (1, 1, 2), and the U-Net's
+# InstanceNorm blocks of 32 and 64 channels at level 0
+NORM_SHAPES = [(f"isensee L{lv} b{b}", (b, 64 >> lv, 64 >> lv, 64 >> lv),
+                16 << lv, 16 << lv) for b in (8, 3) for lv in range(5)] + [
+    ("isensee L0 fold112 b8", (8, 64, 64, 32), 32, 16),
+    ("unet in32 b8", (8, 64, 64, 64), 32, 32),
+    ("unet in64 b8", (8, 64, 64, 64), 64, 64)]
+NORM_HOST_CALLS = 300
+# the fused norm's launches a serving forward of Isensee2017: two for each
+# of its 27 norms (four forwards, 216 launches, a sliding-window case)
+NORM_LAUNCHES = 54
 
 B = 8  # patches per forward: the entry point's --patch-batch-size
 # (entry point, layer, batch, D, H, W, C_in, C_out): every kernel conv of
@@ -448,6 +494,8 @@ KERNELS = {
         "fetal_mri_segmentation_tpu_torch/csrc/dec0.cu",
         "fetal_mri_segmentation_tpu/ops/pallas_dec0.py:123"),
 }
+# the fused InstanceNorm + activation; no TPU kernel counterpart
+NORM_SOURCE = "fetal_mri_segmentation_tpu_torch/csrc/instance_norm.cu"
 
 
 def time_ms(torch, fn, iters: int = 10) -> float:
@@ -620,6 +668,169 @@ def kernel_phase(torch, stats, halo_stats) -> None:
         dec_case(torch, gen, halo_stats, int(layer.startswith(
             "halo-direct")), layer, *shape)
     summarize(halo_stats, "halo'd slab, one rank's whole-volume forward,")
+
+
+def _norm_case(torch, gen, label, shape, width, c, activation="leaky_relu",
+               dtype=None):
+    """One fused norm shape against its plain twin and the composite."""
+    from fetal_mri_segmentation_tpu_torch.models.layers import InstanceNorm
+    from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+        instance_norm_act, instance_norm_act_reference)
+
+    dtype = dtype or torch.bfloat16
+    norm = InstanceNorm(c, dtype=dtype, device="cuda")
+    with torch.no_grad():
+        norm.scale.copy_(1 + 0.5 * torch.randn(c, device="cuda",
+                                               generator=gen))
+        norm.bias.copy_(0.5 * torch.randn(c, device="cuda", generator=gen))
+    # over the (B, rows, C) view the kernel reads: each (sample, channel)
+    # its own offset (far from zero, as after a conv with a bias), spread
+    # and ramp along the rows, which the statistics chunks split in order
+    b, fold = shape[0], width // c
+    rows = math.prod(shape[1:]) * fold
+
+    def per_pair():
+        return torch.randn(b, 1, c, device="cuda", generator=gen)
+
+    ramp = torch.linspace(-1.0, 1.0, rows, device="cuda").view(1, rows, 1)
+    x = (4.0 * per_pair() + torch.exp(0.5 * per_pair()) * (
+        torch.randn(b, rows, c, device="cuda", generator=gen)
+        + 2.0 * per_pair() * ramp)).reshape(*shape, width).to(dtype)
+    with torch.inference_mode():
+        instance_norm_act.launches = 0
+        y = norm(x, activation=activation, negative_slope=0.3)
+        torch.cuda.synchronize()
+        launches = instance_norm_act.launches
+        ref = instance_norm_act_reference(
+            x.reshape(shape[0], -1, c), norm.scale, norm.bias, activation,
+            0.3, norm.epsilon).reshape(x.shape).float()
+        diff = (y.float() - ref).abs()
+        err = diff.max().item()
+        share = (diff / (NORM_REL_TOL * ref.abs() + NORM_ABS_TOL)).max(
+            ).item()
+        ms = time_ms(torch, lambda: norm(x, activation=activation,
+                                         negative_slope=0.3))
+        old_ms = time_ms(torch, lambda: norm._composite(
+            x, False, fold, activation, 0.3))
+    bound = 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+    print(f"norm {label} {tuple(x.shape)} C={c} {activation} {dtype}: "
+          f"max|diff| {err:.6g}, {share:.4f} of the tolerance; launches "
+          f"{launches}; ms {ms:.6g} composite_ms {old_ms:.6g}; bound "
+          f"{bound:.6g} ms (bytes), {bound / ms:.4f} of it", flush=True)
+    if not share <= 1 or launches != 2:
+        raise AssertionError(f"norm {label}: {share} of the tolerance or "
+                             f"launches {launches} != 2")
+    return {"label": label, "ms": ms, "composite_ms": old_ms,
+            "bound_ms": bound, "max_abs_err": err, "tol_share": share}
+
+
+def _host_us(torch, fn, calls: int = NORM_HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn``: the enqueue alone, timed over
+    ``calls`` calls after a synchronize, on a shape whose device work is
+    far shorter than its enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def norm_phase(torch) -> dict:
+    """The fused InstanceNorm + activation on the card (see the module
+    docstring); returns the shapes' times and the host microseconds."""
+    import dataclasses
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.models import build_model, layers
+    from fetal_mri_segmentation_tpu_torch.models.layers import InstanceNorm
+    from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+        instance_norm_act)
+    from fetal_mri_segmentation_tpu_torch.utils.params import (
+        from_flax, init_flax_like)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [_norm_case(torch, gen, *case) for case in NORM_SHAPES]
+    for act in ("relu", "none"):
+        rows.append(_norm_case(torch, gen, f"isensee L1 b8 {act}",
+                               (8, 32, 32, 32), 32, 32, act))
+    rows.append(_norm_case(torch, gen, "isensee L2 b8 fp32", (8, 16, 16, 16),
+                           64, 64, dtype=torch.float32))
+    for b in (8, 3):
+        total = sum(r["ms"] for r in rows[:10] if r["label"].endswith(
+            f"b{b}"))
+        old = sum(r["composite_ms"] for r in rows[:10]
+                  if r["label"].endswith(f"b{b}"))
+        print(f"norm isensee levels 0-4 at batch {b}, one norm each: fused "
+              f"{total:.6g} ms, composite {old:.6g} ms", flush=True)
+
+    # host cost of one norm call, on Isensee's level 4 (4^3 voxels x 256
+    # channels a patch: a few microseconds of device work)
+    norm = InstanceNorm(256, dtype=torch.bfloat16, device="cuda")
+    x = torch.randn(8, 4, 4, 4, 256, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    with torch.inference_mode():
+        fused_us = _host_us(torch, lambda: norm(
+            x, activation="leaky_relu", negative_slope=0.3))
+        old_us = _host_us(torch, lambda: norm._composite(
+            x, False, 1, "leaky_relu", 0.3))
+    print(f"norm host us a call (level 4, batch 8, {NORM_HOST_CALLS} calls):"
+          f" fused {fused_us:.4f}, composite {old_us:.4f}", flush=True)
+
+    # one batch-8 Isensee2017 forward, fused norms against the composite,
+    # both held to an fp32 model on the composite (as the spatial phase
+    # holds its Isensee predictor). The fused and the composite norm round
+    # one output in a few hundred differently (one bf16 step), and each of
+    # the 27 norms scales that back to unit variance: the same kind of
+    # difference as kernels on against off, so NORM_PROB_TOL (PROB_TOL is
+    # the U-Net's, where no norm undoes the damping with depth; this forward
+    # measured 0.0215 against it on the H100)
+    config = Config.load(str(ROOT / "configs" / "fetal_isensee.json"))
+    weights = from_flax(init_flax_like(config, seed=0))
+    model = build_model(config, "cuda").eval()
+    model.load_state_dict(weights)
+    model32 = build_model(dataclasses.replace(
+        config, compute_dtype="float32"), "cuda").eval()
+    model32.load_state_dict(weights)
+    xb = torch.randn(8, *config.patch_shape, config.nb_channels,
+                     device="cuda", generator=gen)
+    with torch.inference_mode():
+        instance_norm_act.launches = 0
+        fused = model(xb).float()
+        torch.cuda.synchronize()
+        launches = instance_norm_act.launches
+        fused_ms = time_ms(torch, lambda: model(xb))
+        fused_host = _host_us(torch, lambda: model(xb), 20) / 1e3
+        saved = layers._kernel_device
+        layers._kernel_device = lambda t: False
+        try:
+            plain = model(xb).float()
+            p32 = model32(xb).float()
+            old_ms = time_ms(torch, lambda: model(xb))
+            old_host = _host_us(torch, lambda: model(xb), 20) / 1e3
+        finally:
+            layers._kernel_device = saved
+    diff = (fused - plain).abs().max().item()
+    fused_32 = (fused - p32).abs().max().item()
+    plain_32 = (plain - p32).abs().max().item()
+    bound = max(2 * plain_32, PROB_TOL)
+    print(f"norm isensee forward batch 8: max|p_fused - p_composite| "
+          f"{diff:.6g} <= {NORM_PROB_TOL}; max|p - p_fp32| fused "
+          f"{fused_32:.6g} <= {bound:.6g}, composite {plain_32:.6g}; "
+          f"launches {launches}; device ms {fused_ms:.6g} against "
+          f"{old_ms:.6g}; host ms a forward {fused_host:.6g} against "
+          f"{old_host:.6g}", flush=True)
+    if not (diff <= NORM_PROB_TOL and fused_32 <= bound
+            and launches == NORM_LAUNCHES):
+        raise AssertionError(f"norm isensee forward: {diff} > "
+                             f"{NORM_PROB_TOL}, {fused_32} > {bound} or "
+                             f"launches {launches} != {NORM_LAUNCHES}")
+    return {"shapes": rows, "host_us": {"fused": fused_us,
+                                        "composite": old_us},
+            "forward_ms": {"fused": fused_ms, "composite": old_ms},
+            "forward_host_ms": {"fused": fused_host, "composite": old_host}}
 
 
 def wgmma_check(lib_path: Path) -> str:
@@ -1464,6 +1675,8 @@ def isensee_phase(torch, work: Path) -> dict:
     from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock
     from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
     from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+        instance_norm_act)
     from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
         get_training_and_validation_generators)
     from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
@@ -1542,8 +1755,14 @@ def isensee_phase(torch, work: Path) -> dict:
             device="cuda", **kw) for name, model in models.items()}
         diff, mean, to32, flips, far = 0.0, 0.0, {"on": 0.0, "off": 0.0}, 0, 0
         for data in cases:
+            instance_norm_act.launches = 0
             p_on = counted(label, forwards(n),
                            lambda: pred["on"].predict_probabilities(data))
+            launches[label]["instance_norm_act"] = instance_norm_act.launches
+            if instance_norm_act.launches != NORM_LAUNCHES * n:
+                raise AssertionError(
+                    f"isensee {label}: fused norm launches "
+                    f"{instance_norm_act.launches}, not {NORM_LAUNCHES * n}")
             p_off = pred["off"].predict_probabilities(data)
             p32 = pred["fp32"].predict_probabilities(data)
             if p_on.shape != (config.n_labels,) + tuple(config.image_shape):
@@ -4372,6 +4591,9 @@ def main() -> None:
     t0 = time.perf_counter()
     kernel_phase(torch, stats, halo_stats)
     seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    norm = norm_phase(torch)
+    seconds["norm"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
                         ("parity", lambda t, w: parity_phase(
@@ -4431,6 +4653,13 @@ def main() -> None:
                 "halo_forward": halo_stats[name],
                 **stats[name]}
                for name, (src, replaces) in KERNELS.items()]
+    kernels.append({"name": "instance_norm_act", "route": "cuda",
+                    "source": NORM_SOURCE, "replaces": None,
+                    "isensee_launches": {
+                        path: counts["instance_norm_act"] for path, counts
+                        in isensee["launches"].items()
+                        if "instance_norm_act" in counts},
+                    **norm})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

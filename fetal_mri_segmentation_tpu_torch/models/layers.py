@@ -52,6 +52,8 @@ from fetal_mri_segmentation_tpu_torch.ops.dec0 import (
     up_concat_conv3x3_kernel)
 from fetal_mri_segmentation_tpu_torch.ops.fold import (
     conv1_folded, conv3_folded, conv3_folded_stride2, up_conv3_folded)
+from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+    instance_norm_act)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
     all_gather_cat, all_reduce_sum_grad, halo_exchange, own_rows)
 
@@ -60,7 +62,8 @@ class InstanceNorm(nn.Module):
     """Per sample and channel over (D, H, W), in fp32: biased variance, eps
     1e-3 inside the rsqrt, learned ``scale`` / ``bias`` per channel, the
     result in ``dtype`` (the JAX ``InstanceNorm``, keras-contrib's
-    semantics).
+    semantics), then the block's ``activation`` (``ConvBlock`` passes its
+    own; "none" by default).
 
     ``group`` (the spatial ranks' process group, :func:`set_spatial_group`):
     x is one depth slab of each sample, and the per-(sample, channel) sums
@@ -68,7 +71,15 @@ class InstanceNorm(nn.Module):
     differentiable all-reduce, so the moments are the whole volume's, as
     ``BatchNorm.group`` does for the batch (variance E[x^2] - E[x]^2,
     clipped at 0). ``whole``: x is a level every rank holds whole, and the
-    moments are x's own."""
+    moments are x's own.
+
+    Where x is a CUDA tensor, autograd records nothing, no trace runs and
+    the moments are x's own (:meth:`_takes_kernel`), the norm and the
+    activation run as the fused kernel
+    ``ops/instance_norm.py::instance_norm_act`` (two launches), which
+    raises for a shape or type it does not take; everywhere else (the CPU,
+    training, depth slabs, ``torch.export``) as the plain fp32 ops of
+    :meth:`_composite`."""
 
     epsilon = 1e-3
 
@@ -80,12 +91,26 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
-    def forward(self, x: torch.Tensor, whole: bool = False,
-                fold: int = 1) -> torch.Tensor:
+    def _takes_kernel(self, x: torch.Tensor, whole: bool) -> bool:
+        return ((self.group is None or whole) and _kernel_device(x)
+                and not torch.is_grad_enabled()
+                and not torch.compiler.is_compiling())
+
+    def forward(self, x: torch.Tensor, whole: bool = False, fold: int = 1,
+                activation: str = "none",
+                negative_slope: float = 0.01) -> torch.Tensor:
         """``fold`` (F > 1): x is space-to-depth folded, (B, d, h, w, F*C)
         sub-voxel-major (``ops/fold.py``), and the moments of each original
         channel are taken over (d, h, w, sub-voxel): exactly the unfolded
-        volume's, since the fold permutes the same voxels."""
+        volume's, since the fold permutes the same voxels. The kernel reads
+        any fold as (B, N*F, C) and needs no ``fold``."""
+        if self._takes_kernel(x, whole):
+            return instance_norm_act(x, self.scale, self.bias, activation,
+                                     negative_slope, self.epsilon, self.dtype)
+        return self._composite(x, whole, fold, activation, negative_slope)
+
+    def _composite(self, x: torch.Tensor, whole: bool, fold: int,
+                   activation: str, negative_slope: float) -> torch.Tensor:
         xf = x.float()
         if fold > 1:
             xf = xf.reshape(*x.shape[:4], fold, x.shape[-1] // fold)
@@ -103,7 +128,8 @@ class InstanceNorm(nn.Module):
                 2, b, *(1,) * len(dims), c)
             var = (mean_sq - mean * mean).clamp(min=0.0)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).reshape(x.shape).to(self.dtype)
+        y = (y * self.scale + self.bias).reshape(x.shape).to(self.dtype)
+        return apply_activation(y, activation, negative_slope)
 
 
 class FoldedInstanceNorm(InstanceNorm):
@@ -121,6 +147,13 @@ class FoldedInstanceNorm(InstanceNorm):
 
     def forward(self, x: torch.Tensor, whole: bool = False) -> torch.Tensor:
         return super().forward(x, whole=whole, fold=self.fold)
+
+
+def _kernel_device(x: torch.Tensor) -> bool:
+    """Whether x lies where the fused norm kernel runs: a CUDA device.
+    Module-level, so a test can monkeypatch it to count the route's choices
+    on CPU tensors."""
+    return x.is_cuda
 
 
 class BatchNorm(nn.Module):
@@ -328,9 +361,10 @@ class ConvBlock(nn.Module):
     ``_pallas_op`` splits them); ``use_kernel_dec0`` routes the fused
     decoder input with a skip to the fused-decoder kernel. The activation is
     fused into both kernels when the block has no norm; with a norm the
-    kernel runs with activation "none" and the norm and activation follow
-    in plain ops, as the JAX ``_pallas_path`` does. A 1^3 or stride-2 conv
-    stays on ``F.conv3d`` (XLA in the JAX package). On CPU tensors the
+    kernel runs with activation "none" and the norm and activation follow,
+    as the JAX ``_pallas_path`` does (an InstanceNorm takes the activation
+    into its own forward, where it may run as one fused kernel). A 1^3 or
+    stride-2 conv stays on ``F.conv3d`` (XLA in the JAX package). On CPU tensors the
     kernel routes run the kernels' plain versions. Both routes are
     differentiable (the kernels' autograd Functions in ``ops/``). Outside
     autograd, both routes take the weight in the compute dtype once per
@@ -405,9 +439,14 @@ class ConvBlock(nn.Module):
     def _epilogue(self, y: torch.Tensor, activated: bool = False,
                   whole: bool = False) -> torch.Tensor:
         """The norm and the activation after any conv route; ``activated``:
-        the kernel already applied the activation (no norm)."""
-        if self.norm_key:
-            y = self._modules[self.norm_key](y, whole=whole)
+        the kernel already applied the activation (no norm). InstanceNorm
+        applies the activation inside its own forward."""
+        norm = self._modules[self.norm_key] if self.norm_key else None
+        if isinstance(norm, InstanceNorm):
+            return norm(y, whole=whole, activation=self.activation,
+                        negative_slope=self.negative_slope)
+        if norm is not None:
+            y = norm(y, whole=whole)
         if activated:
             return y
         return apply_activation(y, self.activation, self.negative_slope)
@@ -570,8 +609,9 @@ class ConvBlock(nn.Module):
                 f"got kernel {(k,) * 3} strides {(st,) * 3}")
         y = y.to(self.dtype)
         if self.norm_key:
-            y = self._modules[self.norm_key](y, whole=whole, fold=n)
-            return apply_activation(y, self.activation, self.negative_slope)
+            return self._modules[self.norm_key](
+                y, whole=whole, fold=n, activation=self.activation,
+                negative_slope=self.negative_slope)
         return self._epilogue(y, whole=whole)
 
 

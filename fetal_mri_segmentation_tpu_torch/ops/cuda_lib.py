@@ -109,7 +109,10 @@ def library() -> ctypes.CDLL:
         _F, _P]
     lib.fetal_dec0_bf16.argtypes = [_SPECS, _INTS, _P, _P] + [_I] * 3 + [
         _F, _P]
+    # (x, y, part, scale, bias, geometry, eps, slope, stream)
+    lib.fetal_instance_norm_act.argtypes = [_P] * 5 + [_SPECS, _F, _F, _P]
     lib.fetal_conv3x3_bf16.restype = lib.fetal_dec0_bf16.restype = _I
+    lib.fetal_instance_norm_act.restype = _I
     return lib
 
 

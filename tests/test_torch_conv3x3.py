@@ -118,5 +118,5 @@ def test_library_name_follows_the_sources():
     path = cuda_lib.library_path()
     assert path.parent == cuda_lib.BUILD_DIR
     assert path == cuda_lib.library_path()
-    assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {"conv3x3.cu",
-                                                             "dec0.cu"}
+    assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {
+        "conv3x3.cu", "dec0.cu", "instance_norm.cu"}
