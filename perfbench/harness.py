@@ -58,6 +58,12 @@ def load_module(path: str, name: str):
     return module
 
 
+def traffic(kind: str):
+    """The module of a kind of traffic, ``traffic/<kind>.py``."""
+    return load_module(os.path.join(BENCH_DIR, "traffic", kind + ".py"),
+                       "pb_traffic_" + kind)
+
+
 def benchmark() -> dict:
     return load_json(os.path.join(ROOT, "BENCHMARK.json"))
 

@@ -1,16 +1,17 @@
 """Inputs and weights made from a run's seed, the same for the program and
 the reference.
 
-- ``make_weights``: every parameter of ``reference/models.py::param_spec``
-  from one normal draw of a generator on the device: conv weights
-  He-normal (std sqrt(2 / fan_in)), so activations keep their scale
-  through the ReLU / LeakyReLU stacks; the 1^3 heads a tenth of that, so
-  the logits lie within about +-1 of 0 whatever the seed and every case
-  has voxels near the 0.5 threshold, where a label map shows a precision
-  fault (at full He scale some seeds push a U-Net's logits to +5 and
-  leave no voxel near it); biases N(0, 0.05^2); InstanceNorm scales
-  1 + N(0, 0.1^2) and biases N(0, 0.1^2). Float32, as the program keeps
-  its parameters.
+- ``make_weights``: every parameter of the family's ``param_spec``
+  (``perfbench/families/<model_name>.py``) from one normal draw of a
+  generator on the device, each scaled by the family's ``init``: conv
+  weights He-normal (std sqrt(2 / fan_in)), so activations keep their
+  scale through the ReLU / LeakyReLU stacks; the 1^3 heads a tenth of
+  that, so the logits lie within about +-1 of 0 whatever the seed and
+  every case has voxels near the 0.5 threshold, where a label map shows a
+  precision fault (at full He scale some seeds push a U-Net's logits to
+  +5 and leave no voxel near it); biases N(0, 0.05^2); InstanceNorm
+  scales 1 + N(0, 0.1^2) and biases N(0, 0.1^2). Float32, as the program
+  keeps its parameters.
 - ``ellipsoid_cases``: the synthetic case maker of
   ``fetal_mri_segmentation_tpu_torch/data/synthetic.py::
   make_ellipsoid_case`` (itself a copy of the JAX package's test helper),
@@ -35,8 +36,8 @@ import struct
 import numpy as np
 import torch
 
+from perfbench.families import family
 from perfbench.reference import models
-from perfbench.reference.models import param_spec
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -46,24 +47,15 @@ def generator(seed: int, device) -> torch.Generator:
 
 
 def make_weights(cfg: dict, seed: int, device) -> dict:
-    spec = param_spec(cfg)
+    fam = family(cfg)
+    spec = fam.param_spec(cfg)
     total = sum(math.prod(s) for _, s in spec)
     z = torch.randn(total, generator=generator(seed, device), device=device)
     out, at = {}, 0
     for name, shape in spec:
         n = math.prod(shape)
-        v = z[at:at + n].view(shape)
+        out[name] = fam.init(name, shape, z[at:at + n].view(shape))
         at += n
-        if name.endswith("in.scale"):
-            v = 1.0 + 0.1 * v
-        elif name.endswith("in.bias"):
-            v = 0.1 * v
-        elif len(shape) == 1:
-            v = 0.05 * v
-        else:
-            gain = 0.1 if name.startswith(("head.", "seg")) else 1.0
-            v = v * (gain * math.sqrt(2.0 / math.prod(shape[1:])))
-        out[name] = v
     return out
 
 
@@ -76,7 +68,7 @@ def center_head(weights: dict, cfg: dict, x: torch.Tensor) -> None:
     rounding at all."""
     with torch.no_grad():
         z = models.forward(weights, x.float(), cfg)
-    key = "head.bias" if cfg["model_name"] == "unet" else "seg0.bias"
+    key = family(cfg).head_key(cfg)
     weights[key] = weights[key] - z.median()
 
 

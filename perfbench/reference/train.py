@@ -11,7 +11,14 @@ loss and Keras' Adam, written from their descriptions.
   the program's was, in the order the program documents for its
   generator: flips (B, 3) uniforms, symmetries (B,) integers, contrast
   (2, B) uniforms.
-- Loss: the negative soft Dice over the flattened batch, smooth 1.
+- Loss: the family's (``perfbench/families/<model_name>.py::loss``): the
+  negative soft Dice over the flattened batch, smooth 1
+  (``dice_loss``), or the negative weighted Dice, the mean over (sample,
+  label) of each one's Dice over its voxels, smooth 1e-5
+  (``weighted_dice_loss``).
+- Dropout: the family's keep-masks (``dropout_masks``), drawn from the
+  same generator right after the augmentation's draws, as the program's
+  step draws them.
 - Adam as Keras 2 computes it: ``m <- b1 m + (1 - b1) g``,
   ``v <- b2 v + (1 - b2) g^2``, ``p <- p - lr * sqrt(1 - b2^t) /
   (1 - b1^t) * m / (sqrt(v) + 1e-7)``.
@@ -24,7 +31,7 @@ from typing import Dict, List
 
 import torch
 
-from perfbench.reference import models
+from perfbench.families import family
 
 KEYS = tuple(sorted(set(itertools.product(
     itertools.combinations_with_replacement(range(2), 2),
@@ -79,11 +86,20 @@ def dice_loss(y, pred, smooth: float = 1.0):
     return -(2.0 * (t * p).sum() + smooth) / (t.sum() + p.sum() + smooth)
 
 
+def weighted_dice_loss(y, pred, smooth: float = 1e-5):
+    """y, pred (B, L, D, H, W)."""
+    dims = (2, 3, 4)
+    dice = (2.0 * ((y * pred).sum(dims) + smooth / 2)
+            / (y.sum(dims) + pred.sum(dims) + smooth))
+    return -dice.mean()
+
+
 def run_steps(params: Dict[str, torch.Tensor], batches: List, cfg: dict,
               generator, quant=None) -> dict:
     """Train float32 copies of ``params`` on ``batches`` [(x, y), ...];
     returns each step's loss, the first step's gradient per leaf and the
     parameters after the last step."""
+    fam = family(cfg)
     p = {k: v.detach().float().clone().requires_grad_(True)
          for k, v in params.items()}
     m = {k: torch.zeros_like(v) for k, v in p.items()}
@@ -97,8 +113,9 @@ def run_steps(params: Dict[str, torch.Tensor], batches: List, cfg: dict,
         if aug:
             x, y = augment(generator, x, y, cfg.get("flip", True),
                            cfg.get("permute", True), cfg.get("contrast"))
-        logits = models.forward(p, x, cfg, quant)
-        loss = dice_loss(y, torch.sigmoid(logits))
+        masks = fam.dropout_masks(generator, x.shape[0], cfg)
+        logits = fam.forward(p, x, cfg, quant, masks)
+        loss = fam.loss(y, torch.sigmoid(logits), cfg)
         grads = torch.autograd.grad(loss, list(p.values()))
         losses.append(float(loss.detach()))
         if first_grad is None:

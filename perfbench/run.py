@@ -66,10 +66,8 @@ def build(args):
                   f"found {torch.cuda.device_count()}", file=sys.stderr)
             raise SystemExit(2)
         device = torch.device("cuda", 0)
-    kind = cell["spec"]["kind"]
-    traffic = harness.load_module(
-        os.path.join(HERE, "traffic", kind + ".py"), "pb_traffic_" + kind)
-    return cell, traffic.Run(cell, args.seed, device)
+    return cell, harness.traffic(cell["spec"]["kind"]).Run(cell, args.seed,
+                                                           device)
 
 
 def main(argv=None) -> int:

@@ -9,6 +9,7 @@ import io
 import json
 import subprocess
 import sys
+import types
 
 import pytest
 
@@ -16,8 +17,13 @@ from perfbench import control, harness, program, run
 from perfbench.tests.conftest import ROOT
 
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
-FAULTS = {"window": ["altered_labels"], "nifti": ["altered_labels"],
-          "train": ["unchanged_state", "half_batch"]}
+KINDS = sorted({harness.load_cell(c)["spec"]["kind"] for c in CELLS})
+
+
+def declared_faults(module) -> list:
+    """The ``FAULTS`` list a kind's module declares, or [] where it
+    declares none (``test_kind_declares_faults`` then fails for it)."""
+    return list(getattr(module, "FAULTS", None) or [])
 
 
 def _run(argv):
@@ -45,10 +51,28 @@ def test_rehearsal(cell, trace):
     assert all(t.startswith("check ") for t in tail)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_kind_declares_faults(kind):
+    """Each kind names the faults its cells can have, from
+    ``program.FAULTS``."""
+    faults = declared_faults(harness.traffic(kind))
+    assert faults, f"perfbench/traffic/{kind}.py declares no FAULTS list"
+    assert set(faults) <= set(program.FAULTS), faults
+
+
+def test_kind_without_faults_fails_by_name(monkeypatch):
+    """A kind without the list fails ``test_kind_declares_faults``, which
+    names its file, and gives no fault case instead of an error."""
+    monkeypatch.setattr(harness, "traffic", types.ModuleType)
+    with pytest.raises(AssertionError, match="traffic/bare.py"):
+        test_kind_declares_faults("bare")
+    assert list(_fault_cases()) == []
+
+
 def _fault_cases():
     for cell in CELLS:
         kind = harness.load_cell(cell)["spec"]["kind"]
-        for fault in FAULTS[kind]:
+        for fault in declared_faults(harness.traffic(kind)):
             yield cell, fault
 
 

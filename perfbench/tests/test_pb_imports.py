@@ -41,13 +41,23 @@ def test_no_forbidden_import(path):
     assert not tops & banned, (path, tops & banned)
 
 
-@pytest.mark.parametrize("path", _sources("reference"), ids=os.path.basename)
+# what the reference and the families may import of the benchmark: each
+# other, and the arithmetic of FLOPs and peaks
+REFERENCE_SIDE = ("perfbench.reference", "perfbench.families",
+                  "perfbench.flops", "perfbench.peaks")
+
+
+@pytest.mark.parametrize(
+    "path", _sources("reference") + _sources("families")
+    + [os.path.join(BENCH, "flops.py"), os.path.join(BENCH, "peaks.py")],
+    ids=lambda p: os.path.relpath(p, BENCH))
 def test_reference_imports_nothing_of_the_port(path):
     tops = {name.split(".")[0] for name in _imports(path)}
     assert tops <= {"__future__", "gzip", "struct", "itertools", "math",
-                    "typing", "numpy", "torch", "perfbench"}, tops
-    assert all(n.startswith("perfbench.reference") for n in _imports(path)
-               if n.startswith("perfbench"))
+                    "typing", "numpy", "torch", "perfbench", "functools",
+                    "importlib", "os"}, tops
+    assert all(n.startswith(REFERENCE_SIDE) for n in _imports(path)
+               if n.startswith("perfbench")), list(_imports(path))
 
 
 def test_forbidden_names_compared_whole(monkeypatch):

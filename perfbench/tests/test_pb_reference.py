@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import harness, inputs, program
+from perfbench import families, harness, inputs, program
 from perfbench.reference import ingest, models, train, window
 
 SMALL = {"image_shape": [24, 24, 24], "patch_shape": [16, 16, 16],
@@ -58,8 +58,9 @@ def test_sliding_window(name):
     assert window.flip_margin(torch.from_numpy(labels), ref) <= 1e-5
 
 
-def test_train_steps():
-    cfg = _cfg("unet3d-fetal", batch_size=3)
+def _train_both(cfg, batches, reference=None):
+    """The program's steps and the reference's on ``batches`` from the
+    same weights and draws: (program losses, model, weights, reference)."""
     w = inputs.make_weights(cfg, 9, "cpu")
     conf = program.config(cfg)
     from fetal_mri_segmentation_tpu_torch.training.state import (
@@ -70,15 +71,60 @@ def test_train_steps():
     model = program.model(conf, w, "cpu")
     state = create_train_state(model, conf)
     step = make_train_step(model, conf, generator=inputs.generator(5, "cpu"))
+    losses = [float(step(state, x, y)["loss"]) for x, y in batches]
+    ref = (reference or train.run_steps)(w, batches, cfg,
+                                         inputs.generator(5, "cpu"))
+    return losses, model, w, ref
+
+
+def _agree(losses, model, w, ref) -> bool:
+    return np.allclose(losses, ref["losses"], rtol=1e-4, atol=1e-6) and all(
+        torch.allclose(p.detach() - w[k], ref["params"][k] - w[k], atol=1e-6,
+                       rtol=1e-3) for k, p in model.named_parameters())
+
+
+def test_train_steps():
+    cfg = _cfg("unet3d-fetal", batch_size=3)
     batches = [inputs.make_batch(s, 3, cfg["patch_shape"], "cpu")
                for s in range(3)]
-    losses = [float(step(state, x, y)["loss"]) for x, y in batches]
-    ref = train.run_steps(w, batches, cfg, inputs.generator(5, "cpu"))
+    losses, model, w, ref = _train_both(cfg, batches)
     assert np.allclose(losses, ref["losses"], rtol=1e-4, atol=1e-6)
     for k, p in model.named_parameters():
         moved = ref["params"][k] - w[k]
         assert torch.allclose(p.detach() - w[k], moved, atol=1e-6,
                               rtol=1e-3), k
+
+
+def _isensee_train():
+    cfg = _cfg("isensee2017-fetal", batch_size=3)
+    assert cfg["dropout_rate"] > 0 and cfg["augment"]
+    return cfg, [inputs.make_batch(s, 3, cfg["patch_shape"], "cpu")
+                 for s in range(3)]
+
+
+def test_train_steps_with_dropout():
+    """Isensee2017's steps, its SpatialDropout masks drawn by the
+    reference right after the augmentation's draws, as the program draws
+    them; its loss the weighted Dice."""
+    cfg, batches = _isensee_train()
+    assert _agree(*_train_both(cfg, batches))
+
+
+def test_masks_drawn_before_augmentation_fail(monkeypatch):
+    """A planted fault in the reference: the masks drawn before the
+    augmentation. The comparison then fails."""
+    cfg, batches = _isensee_train()
+    fam = families.family(cfg)
+    drawn = []
+    augment, masks = train.augment, fam.dropout_masks
+
+    def early(generator, x, y, *args):
+        drawn.append(masks(generator, x.shape[0], cfg))
+        return augment(generator, x, y, *args)
+
+    monkeypatch.setattr(train, "augment", early)
+    monkeypatch.setattr(fam, "dropout_masks", lambda *a: drawn.pop())
+    assert not _agree(*_train_both(cfg, batches))
 
 
 def test_symmetry_table():

@@ -33,6 +33,10 @@ from perfbench.reference import ingest, models
 from perfbench.traffic.window import (central_patch, margin_checks,
                                       reference_margin)
 
+# the faults (``program.FAULTS``) this kind's cells can have: each
+# must make ``correct`` false (``tests/test_pb_cells.py``)
+FAULTS = ["altered_labels"]
+
 
 class Run:
     def __init__(self, cell, seed, device):

@@ -26,24 +26,39 @@ import numpy as np
 import torch
 
 from perfbench import flops, inputs, profiling, program
+from perfbench.families import family
 from perfbench.reference import models
 from perfbench.reference import train as ref_train
-from perfbench.traffic.window import NORM_CLASSES
 
 BETA1 = 0.9
+# the faults (``program.FAULTS``) this kind's cells can have: each
+# must make ``correct`` false (``tests/test_pb_cells.py``)
+FAULTS = ["unchanged_state", "half_batch"]
+
+
+def leaf_gaps(prog: dict, ref: dict, keys) -> list:
+    """Each leaf's gap between two norms, over the reference's norm of
+    that leaf or of the median leaf, whichever is larger."""
+    med = statistics.median(ref[k] for k in keys)
+    return [abs(prog[k] - ref[k]) / max(ref[k], med, 1e-30) for k in keys]
 
 
 def leaf_gap(prog: dict, ref: dict, keys) -> float:
-    """The worst leaf's gap between two norms, over the reference's norm of
-    that leaf or of the median leaf, whichever is larger."""
-    med = statistics.median(ref[k] for k in keys)
-    return max(abs(prog[k] - ref[k]) / max(ref[k], med, 1e-30) for k in keys)
+    """The worst leaf's gap (``leaf_gaps``)."""
+    return max(leaf_gaps(prog, ref, keys))
+
+
+# the numbers a train cell can compare; a cell compares those its
+# ``limits`` name
+NUMBERS = ("first_loss_gap", "grad_gap", "change_gap", "median_grad_gap")
 
 
 def readings(losses, grads, changes, ref) -> dict:
-    """The three numbers compared, from one side's losses and per-leaf
-    gradient and change norms against the reference's ``ref``
-    (``reference/train.py::run_steps``)."""
+    """The numbers compared (``NUMBERS``), from one side's losses and
+    per-leaf gradient and change norms against the reference's ``ref``
+    (``reference/train.py::run_steps``). ``median_grad_gap``: the median
+    leaf's first-gradient gap, over the leaves that move, which the
+    rounding of one leaf does not swing as it swings the worst leaf's."""
     gr = {k: float(g.norm()) for k, g in ref["first_grad"].items()}
     med = statistics.median(gr.values())
     # leaves whose reference gradient is nought to rounding move by
@@ -57,7 +72,9 @@ def readings(losses, grads, changes, ref) -> dict:
     return {"first_loss_gap": abs(losses[0] - ref["losses"][0])
             / abs(ref["losses"][0]),
             "grad_gap": leaf_gap(grads, gr, list(gr)),
-            "change_gap": leaf_gap(changes, cr, moving)}
+            "change_gap": leaf_gap(changes, cr, moving),
+            "median_grad_gap": statistics.median(leaf_gaps(grads, gr,
+                                                           moving))}
 
 
 class Run:
@@ -145,16 +162,18 @@ class Run:
 
     def traced(self):
         k = int(self.params["trace_steps"])
-        classes = {c: "norm" for c in NORM_CLASSES}
         rec = profiling.two_stretches(
             lambda n: self._steps(steps=n, trace=True), k, self.model,
-            {"ConvBlock": "conv", **classes})
+            family(self.cfg).ranges())
         patch = self.cfg["patch_shape"]
         rec.update(kind="train", items=k, ranged_items=k,
                    flops_per_item=flops.train_step_flops(self.cfg, patch,
                                                          self.batch),
                    conv_bound_s_per_item=self.batch * flops.block_bound_ms(
-                       self.cfg, patch) / 1e3)
+                       self.cfg, patch) / 1e3,
+                   bound_s_per_item={
+                       g: self.batch * ms / 1e3 for g, ms in
+                       flops.group_bound_ms(self.cfg, patch).items()})
         return rec
 
     def release(self):
@@ -175,7 +194,7 @@ class Run:
     def _checks(self, values):
         return [{"name": k, "value": float(values[k]),
                  "limit": float(self.limits[k])}
-                for k in ("first_loss_gap", "grad_gap", "change_gap")]
+                for k in NUMBERS if k in self.limits]
 
     def check(self):
         return self._checks(readings(self.losses, self.grads, self.changes,

@@ -25,9 +25,12 @@ import numpy as np
 import torch
 
 from perfbench import flops, inputs, profiling, program
+from perfbench.families import family
 from perfbench.reference import models, window
 
-NORM_CLASSES = ("InstanceNorm", "FoldedInstanceNorm", "BatchNorm")
+# the faults (``program.FAULTS``) this kind's cells can have: each
+# must make ``correct`` false (``tests/test_pb_cells.py``)
+FAULTS = ["altered_labels"]
 
 
 def reference_margin(weights, cfg, volume, labels, patch, overlap, batch,
@@ -139,15 +142,17 @@ class Run:
 
     def traced(self):
         k = int(self.params["trace_cases"])
-        classes = {"ConvBlock": "conv", **{c: "norm" for c in NORM_CLASSES}}
         rec = profiling.two_stretches(
             lambda n: self._serve(cases=n, trace=True), k, self.model,
-            classes)
+            family(self.cfg).ranges())
         n, patch = self.patches(), self.cfg["patch_shape"]
         rec.update(kind="serve", items=k, ranged_items=k,
                    flops_per_item=n * flops.forward_flops(self.cfg, patch),
                    conv_bound_s_per_item=n * flops.block_bound_ms(
-                       self.cfg, patch) / 1e3)
+                       self.cfg, patch) / 1e3,
+                   bound_s_per_item={
+                       g: n * ms / 1e3 for g, ms in flops.group_bound_ms(
+                           self.cfg, patch).items()})
         return rec
 
     def release(self):
