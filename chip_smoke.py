@@ -204,10 +204,17 @@ and one batch-8 forward of ``configs/fetal_isensee.json`` with the fused
 norms against the composite (probabilities within ``NORM_PROB_TOL``, 54
 launches), both timed, each held to an fp32 model on the composite (the
 fused no further from it than twice the composite, or ``PROB_TOL``). The
-isensee phase counts the fused norm's launches of its serving predictors
-(``NORM_LAUNCHES`` a forward: 216 a sliding-window case), and the
-``kernels`` line carries an ``instance_norm_act`` entry with the norm
-phase's shapes (``ms``, ``bound_ms``) and those counts.
+same phase holds the kernel to its twin at Swin UNETR's settings (eps
+1e-5, LeakyReLU 0.01, no affine) at every norm shape of its serving
+forward (``SWIN_NORM_SHAPES``, activations "leaky_relu" and "none"); the
+swin phase after it runs one batch-4 96^3 forward of the swin_unetr
+preset, fused norms against the composite in the same way, with
+``SWIN_NORM_LAUNCHES`` (52) launches and ``SWIN_ATTN_CALLS`` SDPA
+attention calls. The isensee phase counts the fused norm's launches of
+its serving predictors (``NORM_LAUNCHES`` a forward: 216 a
+sliding-window case), and the ``kernels`` line carries an
+``instance_norm_act`` entry with the norm phase's shapes (``ms``,
+``bound_ms``) and those counts.
 
 Then one JSON line describing the kernels, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
@@ -288,10 +295,31 @@ NORM_SHAPES = [(f"isensee L{lv} b{b}", (b, 64 >> lv, 64 >> lv, 64 >> lv),
     ("isensee L0 fold112 b8", (8, 64, 64, 32), 32, 16),
     ("unet in32 b8", (8, 64, 64, 64), 32, 32),
     ("unet in64 b8", (8, 64, 64, 64), 64, 64)]
+# Swin UNETR's residual blocks (the swin_unetr preset: feature size 48 on
+# 96^3 patches, 4 a batch, the last batch of a case 3): InstanceNorm at eps
+# 1e-5 without affine (ones and zeros buffers), LeakyReLU 0.01 after the
+# first norm of a block and none after the others. (label, (batch, D, H,
+# W), channels) of every norm shape of one forward: encoder1 and decoder1
+# at 96^3, encoder2 and decoder2 at 48^3 (hidden state 0), then 24^3, 12^3
+# and 6^3 (encoder3 / decoder3, encoder4 / decoder4, decoder5) and
+# encoder10 on hidden state 4 at 3^3; plus 96 channels over 48^3 rows, a
+# wider channel count at stage 1's row count
+SWIN_NORM_EPS, SWIN_NORM_SLOPE = 1e-5, 0.01
+SWIN_NORM_SHAPES = [(f"swin {n}^3 C{c} b{b}", (b, n, n, n), c)
+                    for b in (4, 3) for n, c in (
+                        (96, 48), (48, 48), (24, 96), (12, 192), (6, 384),
+                        (3, 768))] + [("swin 48^3 C96 b4", (4, 48, 48, 48),
+                                       96)]
 NORM_HOST_CALLS = 300
 # the fused norm's launches a serving forward of Isensee2017: two for each
 # of its 27 norms (four forwards, 216 launches, a sliding-window case)
 NORM_LAUNCHES = 54
+# the swin_unetr preset's serving forward: two for each of its 26 norms (3
+# in each block whose channels change: encoder1 and the five up blocks; 2
+# in encoder2, 3, 4 and 10), and its 8 Swin blocks' window attention on
+# the SDPA route
+SWIN_NORM_LAUNCHES, SWIN_ATTN_CALLS = 52, 8
+SWIN_CONFIG = "fetal_mri_segmentation_tpu_torch/configs/fetal_swin_unetr.json"
 
 B = 8  # patches per forward: the entry point's --patch-batch-size
 # (entry point, layer, batch, D, H, W, C_in, C_out): every kernel conv of
@@ -671,18 +699,23 @@ def kernel_phase(torch, stats, halo_stats) -> None:
 
 
 def _norm_case(torch, gen, label, shape, width, c, activation="leaky_relu",
-               dtype=None):
-    """One fused norm shape against its plain twin and the composite."""
+               dtype=None, eps=1e-3, slope=0.3, affine=True):
+    """One fused norm shape against its plain twin and the composite.
+    ``eps``, ``slope`` and ``affine``: the norm's settings (Isensee2017's by
+    default; without affine its scale and bias stay ones and zeros)."""
     from fetal_mri_segmentation_tpu_torch.models.layers import InstanceNorm
     from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
         instance_norm_act, instance_norm_act_reference)
 
     dtype = dtype or torch.bfloat16
-    norm = InstanceNorm(c, dtype=dtype, device="cuda")
-    with torch.no_grad():
-        norm.scale.copy_(1 + 0.5 * torch.randn(c, device="cuda",
-                                               generator=gen))
-        norm.bias.copy_(0.5 * torch.randn(c, device="cuda", generator=gen))
+    norm = InstanceNorm(c, dtype=dtype, device="cuda", eps=eps,
+                        affine=affine)
+    if affine:
+        with torch.no_grad():
+            norm.scale.copy_(1 + 0.5 * torch.randn(c, device="cuda",
+                                                   generator=gen))
+            norm.bias.copy_(0.5 * torch.randn(c, device="cuda",
+                                              generator=gen))
     # over the (B, rows, C) view the kernel reads: each (sample, channel)
     # its own offset (far from zero, as after a conv with a bias), spread
     # and ramp along the rows, which the statistics chunks split in order
@@ -698,22 +731,23 @@ def _norm_case(torch, gen, label, shape, width, c, activation="leaky_relu",
         + 2.0 * per_pair() * ramp)).reshape(*shape, width).to(dtype)
     with torch.inference_mode():
         instance_norm_act.launches = 0
-        y = norm(x, activation=activation, negative_slope=0.3)
+        y = norm(x, activation=activation, negative_slope=slope)
         torch.cuda.synchronize()
         launches = instance_norm_act.launches
         ref = instance_norm_act_reference(
             x.reshape(shape[0], -1, c), norm.scale, norm.bias, activation,
-            0.3, norm.epsilon).reshape(x.shape).float()
+            slope, norm.epsilon).reshape(x.shape).float()
         diff = (y.float() - ref).abs()
         err = diff.max().item()
         share = (diff / (NORM_REL_TOL * ref.abs() + NORM_ABS_TOL)).max(
             ).item()
         ms = time_ms(torch, lambda: norm(x, activation=activation,
-                                         negative_slope=0.3))
+                                         negative_slope=slope))
         old_ms = time_ms(torch, lambda: norm._composite(
-            x, False, fold, activation, 0.3))
+            x, False, fold, activation, slope))
     bound = 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-    print(f"norm {label} {tuple(x.shape)} C={c} {activation} {dtype}: "
+    print(f"norm {label} {tuple(x.shape)} C={c} {activation} {dtype} eps "
+          f"{eps} slope {slope} affine {affine}: "
           f"max|diff| {err:.6g}, {share:.4f} of the tolerance; launches "
           f"{launches}; ms {ms:.6g} composite_ms {old_ms:.6g}; bound "
           f"{bound:.6g} ms (bytes), {bound / ms:.4f} of it", flush=True)
@@ -765,6 +799,11 @@ def norm_phase(torch) -> dict:
                   if r["label"].endswith(f"b{b}"))
         print(f"norm isensee levels 0-4 at batch {b}, one norm each: fused "
               f"{total:.6g} ms, composite {old:.6g} ms", flush=True)
+    for label, shape, c in SWIN_NORM_SHAPES:
+        for act in ("leaky_relu", "none"):
+            rows.append(_norm_case(
+                torch, gen, f"{label} {act}", shape, c, c, act,
+                eps=SWIN_NORM_EPS, slope=SWIN_NORM_SLOPE, affine=False))
 
     # host cost of one norm call, on Isensee's level 4 (4^3 voxels x 256
     # channels a patch: a few microseconds of device work)
@@ -831,6 +870,79 @@ def norm_phase(torch) -> dict:
                                         "composite": old_us},
             "forward_ms": {"fused": fused_ms, "composite": old_ms},
             "forward_host_ms": {"fused": fused_host, "composite": old_host}}
+
+
+def swin_phase(torch) -> dict:
+    """One serving forward of the swin_unetr preset (``SWIN_CONFIG``:
+    feature size 48, bf16) on a batch of 4 96^3 patches, with weights from
+    ``init_parameters`` at seed 0: the fused norm's launches exactly
+    ``SWIN_NORM_LAUNCHES`` and the window attention's SDPA calls
+    ``SWIN_ATTN_CALLS``; the probabilities against the same model with
+    every norm on the composite (``NORM_PROB_TOL``), both held to an fp32
+    model on the composite (the fused no further from it than twice the
+    composite, or ``PROB_TOL``), as the norm phase holds Isensee2017's
+    forward; both forwards timed."""
+    import dataclasses
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.models import build_model, layers
+    from fetal_mri_segmentation_tpu_torch.models.swin_unetr import (
+        init_parameters)
+    from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+        instance_norm_act)
+    from fetal_mri_segmentation_tpu_torch.ops.window_attention import (
+        window_attention)
+
+    config = Config.load(str(ROOT / SWIN_CONFIG))
+    model = build_model(config, "cuda").eval()
+    init_parameters(model, seed=0)
+    model32 = build_model(dataclasses.replace(
+        config, compute_dtype="float32"), "cuda").eval()
+    model32.load_state_dict(model.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xb = torch.randn(config.batch_size, *config.patch_shape,
+                     config.nb_channels, device="cuda", generator=gen)
+    with torch.inference_mode():
+        instance_norm_act.launches = 0
+        before = window_attention.calls["sdpa"]
+        fused = model(xb).float()
+        torch.cuda.synchronize()
+        launches = instance_norm_act.launches
+        attn_calls = window_attention.calls["sdpa"] - before
+        fused_ms = time_ms(torch, lambda: model(xb), 5)
+        saved = layers._kernel_device
+        layers._kernel_device = lambda t: False
+        try:
+            instance_norm_act.launches = 0
+            plain = model(xb).float()
+            p32 = model32(xb).float()
+            plain_launches = instance_norm_act.launches
+            old_ms = time_ms(torch, lambda: model(xb), 5)
+        finally:
+            layers._kernel_device = saved
+    diff = (fused - plain).abs().max().item()
+    fused_32 = (fused - p32).abs().max().item()
+    plain_32 = (plain - p32).abs().max().item()
+    bound = max(2 * plain_32, PROB_TOL)
+    print(f"swin forward batch {config.batch_size} of "
+          f"{tuple(config.patch_shape)}: max|p_fused - p_composite| "
+          f"{diff:.6g} <= {NORM_PROB_TOL}; max|p - p_fp32| fused "
+          f"{fused_32:.6g} <= {bound:.6g}, composite {plain_32:.6g} (p in "
+          f"[{fused.min().item():.6g}, {fused.max().item():.6g}]); norm "
+          f"launches {launches} (composite {plain_launches}), attention "
+          f"calls {attn_calls}; device ms {fused_ms:.6g} against "
+          f"{old_ms:.6g}", flush=True)
+    if not (diff <= NORM_PROB_TOL and fused_32 <= bound
+            and bool(torch.isfinite(fused).all())
+            and launches == SWIN_NORM_LAUNCHES and plain_launches == 0
+            and attn_calls == SWIN_ATTN_CALLS):
+        raise AssertionError(
+            f"swin forward: {diff} > {NORM_PROB_TOL}, {fused_32} > {bound}, "
+            f"non-finite, launches {launches} != {SWIN_NORM_LAUNCHES} "
+            f"(composite {plain_launches}) or attention calls {attn_calls} "
+            f"!= {SWIN_ATTN_CALLS}")
+    return {"launches": launches, "forward_ms": {"fused": fused_ms,
+                                                 "composite": old_ms}}
 
 
 def wgmma_check(lib_path: Path) -> str:
@@ -4594,6 +4706,9 @@ def main() -> None:
     t0 = time.perf_counter()
     norm = norm_phase(torch)
     seconds["norm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swin = swin_phase(torch)
+    seconds["swin"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
                         ("parity", lambda t, w: parity_phase(
@@ -4659,7 +4774,8 @@ def main() -> None:
                         path: counts["instance_norm_act"] for path, counts
                         in isensee["launches"].items()
                         if "instance_norm_act" in counts},
-                    **norm})
+                    "swin_launches": swin["launches"],
+                    "swin_forward_ms": swin["forward_ms"], **norm})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

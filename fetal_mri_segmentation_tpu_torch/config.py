@@ -19,7 +19,7 @@ import json
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
-__all__ = ["Config", "check_supported"]
+__all__ = ["Config", "check_interop", "check_supported"]
 
 
 def _tup(x) -> Optional[Tuple[int, ...]]:
@@ -41,7 +41,8 @@ class Config:
     truth_channel: int = 1  # the truth "modality" slot (metadata only)
 
     # --- model --------------------------------------------------------------
-    model_name: str = "unet"  # "unet" | "isensee"
+    model_name: str = "unet"  # "unet" | "isensee" | "swin_unetr" (the port
+                              # only: models/swin_unetr.py)
     depth: Optional[int] = None  # None = model default (unet: 4, isensee: 5);
                                  # an explicit value is always honored as-is
     n_base_filters: int = 32
@@ -131,9 +132,9 @@ class Config:
             raise ValueError(
                 f"device_case_cache={self.device_case_cache!r} — must be "
                 "'auto', 'on' or 'off'")
-        if self.model_name not in ("unet", "isensee"):
+        if self.model_name not in ("unet", "isensee", "swin_unetr"):
             raise ValueError(f"model_name={self.model_name!r} — must be "
-                             "'unet' or 'isensee'")
+                             "'unet', 'isensee' or 'swin_unetr'")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r} — must "
                              "be 'float32' or 'bfloat16'")
@@ -222,7 +223,8 @@ class Config:
 
 def check_supported(config) -> None:
     """Raise, before a model or a dataset is built, for a configuration
-    whose model the JAX package refuses, with its message.
+    whose model the JAX package refuses, with its message, and for what
+    the port's ``swin_unetr`` family does not take (:func:`_check_swin`).
 
     Every setting of the JAX ``Config`` is ported. ``fold_level0``: "auto",
     None and "off" run unfolded in the port ("auto" folds on a TPU only,
@@ -233,9 +235,58 @@ def check_supported(config) -> None:
     (data-parallel training, ``parallel/data_parallel.py``) and
     ``spatial_devices`` above 1 (depth-axis sharding on a hybrid mesh,
     ``parallel/spatial.py``) pass."""
+    if config.model_name == "swin_unetr":
+        _check_swin(config)
     if config.model_name == "unet":
         from fetal_mri_segmentation_tpu_torch.models.layers import (
             check_unet_fold)
 
         check_unet_fold(config.fold_level0, not config.deconvolution,
                         config.depth, config.batch_normalization)
+
+
+def _check_swin(config) -> None:
+    """What ``SwinUNETR`` (``models/swin_unetr.py``) does not take: the
+    Hopper kernel switches (its convs have no bias and run on cuDNN), an
+    explicit fold, a depth-sharded mesh, a depth other than its four
+    stages, a feature size (``n_base_filters``) that is not a multiple of
+    12 (MONAI asserts it: every stage's heads divide its channels) and a
+    patch not divisible by 32. The flax and Keras interop refuse it in
+    :func:`check_interop`."""
+    fs, shape = config.n_base_filters, config.patch_shape
+    problems = [
+        (config.use_pallas_conv or config.use_pallas_dec0,
+         "use_pallas_conv / use_pallas_dec0 select the Hopper conv kernels, "
+         "which take the U-Net families' conv blocks; swin_unetr's convs run "
+         "on cuDNN: set both false"),
+        (config.fold_level0 not in (None, "auto", "off"),
+         f"fold_level0={config.fold_level0!r}: swin_unetr has no folded "
+         "form: use 'auto' or 'off'"),
+        (config.spatial_devices > 1,
+         f"spatial_devices={config.spatial_devices}: swin_unetr runs whole "
+         "patches on one device (no depth-sharded form): use 1"),
+        (config.depth != 4,
+         f"depth={config.depth}: swin_unetr has 4 stages (MONAI's depths "
+         "(2, 2, 2, 2)): set depth 4"),
+        (fs < 12 or fs % 12,
+         f"n_base_filters={fs}: swin_unetr's feature size must be a "
+         "multiple of 12 (MONAI's check: heads 3, 6, 12, 24 divide its "
+         "stages' channels)"),
+        (shape is not None and any(s % 32 for s in shape),
+         f"patch_shape={shape}: swin_unetr needs each side divisible by 32 "
+         "(the patch embedding and four merges halve it five times)"),
+    ]
+    for bad, message in problems:
+        if bad:
+            raise ValueError(message)
+
+
+def check_interop(model_name: str) -> None:
+    """Raise for a family with no flax or Keras counterpart: the JAX
+    package's parameter layout (``utils/params.py``) and the Keras import
+    and export (``utils/keras_*.py``) cover ``unet`` and ``isensee``."""
+    if model_name == "swin_unetr":
+        raise ValueError(
+            "swin_unetr has no flax or Keras counterpart: the JAX package's "
+            "parameter layout and the Keras import and export cover 'unet' "
+            "and 'isensee' only; save and load the port's own checkpoint")

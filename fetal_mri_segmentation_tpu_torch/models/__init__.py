@@ -1,4 +1,5 @@
-"""Model family and factory of the port: ``UNet3D`` and ``Isensee2017``."""
+"""Model families and factory of the port: ``UNet3D``, ``Isensee2017`` and
+``SwinUNETR`` (the port only; the JAX package has no such model)."""
 
 from __future__ import annotations
 
@@ -6,17 +7,18 @@ import torch
 
 from fetal_mri_segmentation_tpu_torch.config import check_supported
 from fetal_mri_segmentation_tpu_torch.models.isensee2017 import Isensee2017
+from fetal_mri_segmentation_tpu_torch.models.swin_unetr import SwinUNETR
 from fetal_mri_segmentation_tpu_torch.models.unet3d import UNet3D
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 
-__all__ = ["Isensee2017", "UNet3D", "build_model"]
+__all__ = ["Isensee2017", "SwinUNETR", "UNet3D", "build_model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_model(config, device="cuda", bn_group=None):
-    """The configured model (``UNet3D`` or ``Isensee2017``, by
-    ``config.model_name``) on ``device``, in eval mode.
+    """The configured model (``UNet3D``, ``Isensee2017`` or ``SwinUNETR``,
+    by ``config.model_name``) on ``device``, in eval mode.
 
     The card by default: on a machine without CUDA the default raises
     (``utils/device.py::resolve_device``); pass ``device="cpu"`` for the
@@ -30,7 +32,12 @@ def build_model(config, device="cuda", bn_group=None):
     model refuses raises here with its message.
 
     ``bn_group``: the process group of the data mesh, for sync BatchNorm
-    under data parallelism (the JAX ``build_model``'s ``bn_axis_name``)."""
+    under data parallelism (the JAX ``build_model``'s ``bn_axis_name``).
+
+    ``SwinUNETR``: ``n_base_filters`` is MONAI's ``feature_size``, and its
+    shift masks are made for ``patch_shape``. On a CUDA device its feature
+    size must be a multiple of 24: the fused InstanceNorm kernel that its
+    residual blocks' norms run takes channel counts in multiples of 8."""
     check_supported(config)
     dtype = _DTYPES[config.compute_dtype]
     if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
@@ -39,6 +46,19 @@ def build_model(config, device="cuda", bn_group=None):
                 raise ValueError(
                     f"{key}=true selects a Hopper kernel, which runs in "
                     f"bf16 only; compute_dtype={config.compute_dtype!r}")
+    if config.model_name == "swin_unetr":
+        if (torch.device(device).type == "cuda"
+                and config.n_base_filters % 8):
+            raise ValueError(
+                f"n_base_filters={config.n_base_filters}: on a CUDA device "
+                "SwinUNETR's feature size must be a multiple of 24 (MONAI's "
+                "12, and the fused InstanceNorm kernel's 8)")
+        return SwinUNETR(
+            in_channels=config.nb_channels, n_labels=config.n_labels,
+            feature_size=config.n_base_filters,
+            activation_name=config.activation_name, dtype=dtype,
+            device=resolve_device(device),
+            patch_shape=config.patch_shape).eval()
     common = dict(in_channels=config.nb_channels, n_labels=config.n_labels,
                   depth=config.depth, n_base_filters=config.n_base_filters,
                   activation_name=config.activation_name, dtype=dtype,

@@ -63,7 +63,10 @@ class InstanceNorm(nn.Module):
     1e-3 inside the rsqrt, learned ``scale`` / ``bias`` per channel, the
     result in ``dtype`` (the JAX ``InstanceNorm``, keras-contrib's
     semantics), then the block's ``activation`` (``ConvBlock`` passes its
-    own; "none" by default).
+    own; "none" by default). ``eps`` and ``affine=False`` give other
+    models' norms (Swin UNETR's: eps 1e-5, no affine): without affine,
+    ``scale`` and ``bias`` are non-persistent buffers of ones and zeros,
+    which both routes apply as they apply the learned ones.
 
     ``group`` (the spatial ranks' process group, :func:`set_spatial_group`):
     x is one depth slab of each sample, and the per-(sample, channel) sums
@@ -81,15 +84,20 @@ class InstanceNorm(nn.Module):
     training, depth slabs, ``torch.export``) as the plain fp32 ops of
     :meth:`_composite`."""
 
-    epsilon = 1e-3
-
     def __init__(self, features: int, *, dtype: torch.dtype = torch.bfloat16,
-                 device=None, group=None):
+                 device=None, group=None, eps: float = 1e-3,
+                 affine: bool = True):
         super().__init__()
         self.dtype = dtype
         self.group = group
-        self.scale = nn.Parameter(torch.ones(features, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.epsilon = eps
+        scale = torch.ones(features, device=device)
+        bias = torch.zeros(features, device=device)
+        if affine:
+            self.scale, self.bias = nn.Parameter(scale), nn.Parameter(bias)
+        else:
+            self.register_buffer("scale", scale, persistent=False)
+            self.register_buffer("bias", bias, persistent=False)
 
     def _takes_kernel(self, x: torch.Tensor, whole: bool) -> bool:
         return ((self.group is None or whole) and _kernel_device(x)
@@ -347,6 +355,9 @@ class ConvBlock(nn.Module):
     """Conv3D(same) -> optional BatchNorm / InstanceNorm -> activation
     (reference: unet3d/model/unet.py::create_convolution_block; the
     Isensee variant uses InstanceNorm + LeakyReLU, optional stride 2).
+    ``bias=False``, ``norm_eps`` and ``norm_affine``: Swin UNETR's residual
+    blocks (convs without bias, InstanceNorm with eps 1e-5 and no affine),
+    which run the plain conv route and the same norm module.
 
     ``forward`` takes an NDHWC tensor, or the fused-decoder input
     ``(x_deep, skip)`` (skip may be None): nearest x2 upsample of x_deep,
@@ -406,7 +417,9 @@ class ConvBlock(nn.Module):
                  activation: str = "relu", negative_slope: float = 0.3,
                  dtype: torch.dtype = torch.bfloat16,
                  use_kernel_conv: bool = False,
-                 use_kernel_dec0: bool = False, device=None, bn_group=None):
+                 use_kernel_dec0: bool = False, device=None, bn_group=None,
+                 bias: bool = True, norm_eps: float = 1e-3,
+                 norm_affine: bool = True):
         super().__init__()
         self.features = features
         self.kernel_size = kernel_size
@@ -418,7 +431,7 @@ class ConvBlock(nn.Module):
         self.use_kernel_dec0 = use_kernel_dec0
         self.spatial_group = None
         self.conv = nn.Conv3d(in_features, features, kernel_size,
-                              stride=stride, device=device)
+                              stride=stride, bias=bias, device=device)
         # the norm sits under flax's name ("bn" or "in"; "in" is a Python
         # keyword, so it is reached through _modules)
         self.norm_key = None
@@ -429,7 +442,8 @@ class ConvBlock(nn.Module):
         elif instance_normalization:
             self.norm_key = "in"
             self.add_module("in", InstanceNorm(features, dtype=dtype,
-                                               device=device))
+                                               device=device, eps=norm_eps,
+                                               affine=norm_affine))
 
     @property
     def kernel_activation(self) -> str:
@@ -507,9 +521,10 @@ class ConvBlock(nn.Module):
             x = F.pad(x, (0, 0) + tuple(v for p in reversed(pads)
                                         for v in p))
             padding = 0
+        bias = self.conv.bias
         return conv3d_ndhwc(x, self.conv.weight.to(self.dtype),
-                            self.conv.bias.to(self.dtype), padding=padding,
-                            stride=self.stride)
+                            None if bias is None else bias.to(self.dtype),
+                            padding=padding, stride=self.stride)
 
     def _fused_decoder(self, x_deep: torch.Tensor,
                        skip: Optional[torch.Tensor],

@@ -29,6 +29,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from fetal_mri_segmentation_tpu_torch.config import check_interop
+
 _COLLECTIONS = ("params", "batch_stats")
 # tools/export_params_npz.py writes optax's Adam state beside the variables:
 # opt/mu/<param path>, opt/nu/<param path>, opt/count, opt/learning_rate
@@ -123,7 +125,12 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def flax_params(model) -> dict:
     """``model``'s parameters (no running statistics) as a nested flax
     params tree in fp32 numpy: what the JAX Keras mappings take as
-    ``variables["params"]``."""
+    ``variables["params"]``. A ``SwinUNETR`` has no such tree and
+    raises."""
+    from fetal_mri_segmentation_tpu_torch.models.swin_unetr import SwinUNETR
+
+    if isinstance(model, SwinUNETR):
+        check_interop("swin_unetr")
     return unflatten(to_flax(dict(model.named_parameters())))
 
 
@@ -181,6 +188,7 @@ def flax_param_shapes(config) -> Dict[str, tuple]:
     ``Isensee2017``), flattened, in the order the model creates them:
     params without a prefix, BatchNorm's running statistics under
     ``batch_stats/``."""
+    check_interop(config.model_name)
     shapes = {}
 
     def block(name, cin, cout, k=3, norm=None):

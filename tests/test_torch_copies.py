@@ -389,3 +389,55 @@ def test_bench_copies_name_their_original():
     for got, want in zip(port_bench._make_batch(np.random.default_rng(3)),
                          root_bench._make_batch(np.random.default_rng(3))):
         np.testing.assert_array_equal(got, want)
+
+
+# the plain Swin UNETR reference at the repository's root and its copy in
+# the benchmark's family file, which may not import it
+SWIN_SHARED = ("param_spec", "up_blocks", "window_and_shift",
+               "relative_position_index", "window_partition",
+               "window_reverse", "shift_mask", "layer_norm", "linear",
+               "attention", "swin_block", "merge", "encoder", "res_block",
+               "up_block", "forward")
+
+
+def _swin_family():
+    from perfbench.families import family
+
+    return family({"model_name": "swin_unetr"})
+
+
+def test_swin_family_source_copies_the_reference():
+    import inspect
+
+    from reference import swin_unetr as ref
+
+    fam = _swin_family()
+    for name in SWIN_SHARED:
+        assert (inspect.getsource(getattr(fam, name))
+                == inspect.getsource(getattr(ref, name))), name
+    for name in ("WINDOW", "PATCH", "DEPTHS", "HEADS", "MLP_RATIO", "LN_EPS",
+                 "IN_EPS", "SLOPE", "MERGE_OFFSETS"):
+        assert getattr(fam, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "float8"])
+def test_swin_family_forward_equals_the_reference(quant):
+    """The family's forward and the reference's on the benchmark's seeded
+    weights (``perfbench/inputs.py::make_weights``), plain and with the
+    float8 control's rounding: equal bit for bit."""
+    import torch
+
+    from perfbench import inputs
+    from perfbench.reference.models import quantize_fp8
+    from reference import swin_unetr as ref
+
+    cfg = {"model_name": "swin_unetr", "n_base_filters": 12, "n_labels": 1,
+           "compute_dtype": "float32"}
+    w = inputs.make_weights(cfg, 2 ** 31 + 5, "cpu")
+    x = torch.randn((1, 1, 32, 32, 32),
+                    generator=torch.Generator().manual_seed(3))
+    q = quantize_fp8 if quant else None
+    with torch.no_grad():
+        got = _swin_family().forward(w, x, cfg, q)
+        want = ref.forward(w, x, cfg, q)
+    assert torch.equal(got, want)

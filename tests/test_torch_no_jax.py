@@ -19,6 +19,8 @@ the device case cache and the data mesh run too (``train.main`` with
 group through ``initialize_distributed`` and takes a data-parallel cached
 step, a GSPMD step on a 1 x 1 hybrid mesh and predicts with the spatial
 and the patch-grid sharded predictors);
+a bf16 Swin UNETR predicts through the sliding window near the plain
+reference ``reference/swin_unetr.py`` (imported under the same refusals);
 ``device="cuda"`` raises on this CUDA-less machine (the port's bench,
 ``fetal_mri_segmentation_tpu_torch.bench``, imports with the root
 ``bench.py`` refused too); and ``chip_smoke.py``
@@ -353,6 +355,23 @@ export_predictor(imodel, icfg, icfg.image_shape, artifact, overlap=2,
 got = load_predictor(artifact, device="cpu")(x)
 want = make_direct_predictor(imodel, icfg, device="cpu").predict_labels(x)
 assert np.array_equal(got, want)
+
+# Swin UNETR: the port's bf16 sliding window and the plain reference
+# (reference/swin_unetr.py, which imports nothing of the port) on one 32^3
+# patch
+from reference import swin_unetr as swin_ref
+from fetal_mri_segmentation_tpu_torch.ops import window_attention
+scfg = Config(model_name="swin_unetr", n_base_filters=12,
+              image_shape=(32, 32, 32), patch_shape=(32, 32, 32))
+smodel = build_model(scfg, "cpu")
+sx = np.random.default_rng(2).normal(size=(1, 32, 32, 32)).astype(np.float32)
+sprob = SlidingWindowPredictor(smodel, scfg, scfg.image_shape, overlap=0)(sx)
+with torch.no_grad():
+    slogit = swin_ref.forward(
+        {k: v.float() for k, v in smodel.state_dict().items()},
+        torch.from_numpy(sx)[None], {"n_base_filters": 12, "n_labels": 1})
+assert np.abs(sprob - torch.sigmoid(slogit)[0].numpy()).max() < 0.05
+assert window_attention.window_attention.calls["composite"] == 8
 
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 assert not loaded, loaded
