@@ -206,11 +206,24 @@ launches), both timed, each held to an fp32 model on the composite (the
 fused no further from it than twice the composite, or ``PROB_TOL``). The
 same phase holds the kernel to its twin at Swin UNETR's settings (eps
 1e-5, LeakyReLU 0.01, no affine) at every norm shape of its serving
-forward (``SWIN_NORM_SHAPES``, activations "leaky_relu" and "none"); the
-swin phase after it runs one batch-4 96^3 forward of the swin_unetr
-preset, fused norms against the composite in the same way, with
-``SWIN_NORM_LAUNCHES`` (52) launches and ``SWIN_ATTN_CALLS`` SDPA
-attention calls. The isensee phase counts the fused norm's launches of
+forward (``SWIN_NORM_SHAPES``, activations "leaky_relu" and "none"). The
+norm training phase runs the fused norm's autograd Function (two forward
+launches, three backward, two without affine) at every norm shape of
+Isensee2017's train step and of Swin UNETR's at its batch of 4 without
+affine (``NORM_TRAIN_SHAPES``): dx, dscale and dbias against autograd
+through the fp32 composite within ``NORM_GRAD_REL_TOL`` /
+``NORM_GRAD_ABS_TOL`` and ``NORM_PARAM_TOL``, the launches counted, and the
+CUDA-event ms of forward plus backward against the bf16 composite's and
+the bound (each input read once, each output written once: 10 bytes an
+element in bf16; the two-pass algorithm's traffic, 16, beside it); the
+isensee phase's train step counts ``NORM_TRAIN_LAUNCHES`` with its fp32
+reference on the composite. The swin phase after it runs one batch-4
+96^3 forward of the swin_unetr preset, fused norms against the composite
+in the same way, with ``SWIN_NORM_LAUNCHES`` (52) launches and
+``SWIN_ATTN_CALLS`` SDPA attention calls, and one train step of it,
+``SWIN_TRAIN_NORM_LAUNCHES`` fused norm launches (forward, backward)
+against none with the norms on the composite. The isensee phase counts
+the fused norm's launches of
 its serving predictors (``NORM_LAUNCHES`` a forward: 216 a
 sliding-window case), and the ``kernels`` line carries an
 ``instance_norm_act`` entry with the norm phase's shapes (``ms``,
@@ -310,15 +323,48 @@ SWIN_NORM_SHAPES = [(f"swin {n}^3 C{c} b{b}", (b, n, n, n), c)
                         (96, 48), (48, 48), (24, 96), (12, 192), (6, 384),
                         (3, 768))] + [("swin 48^3 C96 b4", (4, 48, 48, 48),
                                        96)]
+# The training Function's gradients against autograd through the fp32
+# composite (an fp32 norm on the same bf16 x, scale and bias), element by
+# element: |dx - ref| <= NORM_GRAD_REL_TOL * |ref| + NORM_GRAD_ABS_TOL *
+# max|ref|. Both take the same fp32 derivative and the same sign of the
+# activation's input (rounding to bf16 keeps a sign), so dx differs by its
+# one rounding to bf16 (half a bf16 step, 2^-9 of the value at most; the
+# tolerance is a whole step) and by the fp32 sums' order in the mean terms
+# (~1e-6 of them; the absolute term). dscale and dbias are fp32 sums of
+# up to 1.6M products in another order: max|d - ref| <= NORM_PARAM_TOL *
+# max|ref| (the sums cancel to ~sqrt(N) of their terms, so their rounding
+# reads ~sqrt(N) * 2^-24 = 7e-5 of the result). The incoming gradient dy
+# leans on x^ and on a per-channel offset, so that the two mean terms of
+# dx are as large as dz: a kernel that dropped either term, or summed a
+# chunk twice, misses by a share of max|ref|, not by a rounding.
+NORM_GRAD_REL_TOL, NORM_GRAD_ABS_TOL, NORM_PARAM_TOL = 2 ** -7, 2 ** -10, 1e-3
+# (label, (batch, D, H, W), channels, activation, eps, slope, affine,
+# norms a train step): Isensee2017's norms in a train step (batch 6 of
+# 64^3 patches, 16 base filters: six at each of levels 0-3, three at level
+# 4) and Swin UNETR's (``SWIN_NORM_SHAPES`` at the train step's batch of
+# 4, no affine, both activations its blocks use; 96^3 x 48 down to 3^3 x
+# 768, whose 768 channels a backward block covers in two row groups)
+NORM_TRAIN_SHAPES = [
+    (f"isensee train L{lv} b6", (6, 64 >> lv, 64 >> lv, 64 >> lv), 16 << lv,
+     "leaky_relu", 1e-3, 0.3, True, 6 if lv < 4 else 3) for lv in range(5)
+] + [(f"{label} {act}", shape, c, act, SWIN_NORM_EPS, SWIN_NORM_SLOPE,
+      False, 0) for label, shape, c in SWIN_NORM_SHAPES if shape[0] == 4
+     for act in ("leaky_relu", "none")]
 NORM_HOST_CALLS = 300
 # the fused norm's launches a serving forward of Isensee2017: two for each
 # of its 27 norms (four forwards, 216 launches, a sliding-window case)
 NORM_LAUNCHES = 54
+# an Isensee2017 train step's fused norm launches (forward, backward): two
+# and three for each of its 27 norms
+NORM_TRAIN_LAUNCHES = (54, 81)
 # the swin_unetr preset's serving forward: two for each of its 26 norms (3
 # in each block whose channels change: encoder1 and the five up blocks; 2
 # in encoder2, 3, 4 and 10), and its 8 Swin blocks' window attention on
 # the SDPA route
 SWIN_NORM_LAUNCHES, SWIN_ATTN_CALLS = 52, 8
+# its train step's: two forward and two backward launches for each of the
+# 26 norms (no affine: no parameter gradient, no third backward launch)
+SWIN_TRAIN_NORM_LAUNCHES = (52, 52)
 SWIN_CONFIG = "fetal_mri_segmentation_tpu_torch/configs/fetal_swin_unetr.json"
 
 B = 8  # patches per forward: the entry point's --patch-batch-size
@@ -872,6 +918,147 @@ def norm_phase(torch) -> dict:
             "forward_host_ms": {"fused": fused_host, "composite": old_host}}
 
 
+def _norm_train_case(torch, gen, label, shape, c, activation, eps, slope,
+                     affine, count):
+    """The training Function (forward and backward) at one shape against
+    autograd through the fp32 composite; its launches and CUDA-event ms of
+    forward plus backward against the bf16 composite's (the route a train
+    step takes where the kernel refuses the shape)."""
+    from fetal_mri_segmentation_tpu_torch.models.layers import InstanceNorm
+    from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+        instance_norm_act, instance_norm_act_backward)
+
+    norm = InstanceNorm(c, device="cuda", eps=eps, affine=affine)
+    norm32 = InstanceNorm(c, dtype=torch.float32, device="cuda", eps=eps,
+                          affine=affine)
+    if affine:
+        with torch.no_grad():
+            norm.scale.copy_(1 + 0.5 * torch.randn(c, device="cuda",
+                                                   generator=gen))
+            norm.bias.copy_(0.5 * torch.randn(c, device="cuda",
+                                              generator=gen))
+    norm32.load_state_dict(norm.state_dict())
+    b = shape[0]
+    rows = math.prod(shape[1:])
+
+    def per_pair():
+        return torch.randn(b, 1, c, device="cuda", generator=gen)
+
+    ramp = torch.linspace(-1.0, 1.0, rows, device="cuda").view(1, rows, 1)
+    x = (4.0 * per_pair() + torch.exp(0.5 * per_pair()) * (
+        torch.randn(b, rows, c, device="cuda", generator=gen)
+        + 2.0 * per_pair() * ramp)).to(torch.bfloat16)
+    xf = x.float()
+    xn = (xf - xf.mean(1, keepdim=True)) / xf.std(1, keepdim=True)
+    dy = (torch.randn(b, rows, c, device="cuda", generator=gen)
+          + 1.5 * per_pair() * xn + per_pair()).to(torch.bfloat16)
+    x, dy = x.reshape(*shape, c), dy.reshape(*shape, c)
+    params = [norm.scale, norm.bias] if affine else []
+    params32 = [norm32.scale, norm32.bias] if affine else []
+    xg = x.detach().requires_grad_(True)
+    x32 = x.float().requires_grad_(True)
+
+    def fused():
+        y = norm(xg, activation=activation, negative_slope=slope)
+        return y, torch.autograd.grad(y, [xg, *params], dy)
+
+    def composite():
+        y = norm._composite(xg, False, 1, activation, slope)
+        return torch.autograd.grad(y, [xg, *params], dy)
+
+    instance_norm_act.launches = instance_norm_act_backward.launches = 0
+    y, got = fused()
+    torch.cuda.synchronize()
+    launches = (instance_norm_act.launches,
+                instance_norm_act_backward.launches)
+    want = torch.autograd.grad(
+        norm32._composite(x32, False, 1, activation, slope),
+        [x32, *params32], dy.float())
+    ref = want[0]
+    diff = (got[0].float() - ref).abs()
+    dx_share = (diff / (NORM_GRAD_REL_TOL * ref.abs() + NORM_GRAD_ABS_TOL
+                        * ref.abs().max())).max().item()
+    param_share = max([((g - w).abs().max() / (NORM_PARAM_TOL * w.abs().max())
+                        ).item() for g, w in zip(got[1:], want[1:])],
+                      default=0.0)
+    ms = time_ms(torch, fused)
+    old_ms = time_ms(torch, composite)
+    fwd_dev, bwd_dev = _norm_kernel_ms(torch, fused)
+    del y, got, want, ref, diff, x32
+    # each input read once and each output written once: x and y in the
+    # forward, x, dy and dx in the backward (the (B, C) moments and the
+    # parameters are a rounding); the two-pass algorithm also reads x again
+    # in the forward and x and dy again in the backward
+    size = x.element_size() * x.numel()
+    bound = 5 * size / HBM_BYTES_PER_S * 1e3
+    two_pass = 8 * size / HBM_BYTES_PER_S * 1e3
+    want_launches = (2, 3 if affine else 2)
+    device = ("not measured (no device events)" if fwd_dev is None else
+              f"{fwd_dev:.6g} + {bwd_dev:.6g} ms, "
+              f"{bound / (fwd_dev + bwd_dev):.4f} "
+              "of the bound")
+    print(f"norm train {label} {tuple(x.shape)} {activation} eps {eps} "
+          f"affine {affine}: dx {dx_share:.4f} of the tolerance, dscale / "
+          f"dbias {param_share:.4f} of theirs; launches forward "
+          f"{launches[0]}, backward {launches[1]}; forward + backward ms "
+          f"{ms:.6g} composite_ms {old_ms:.6g}; bound {bound:.6g} ms "
+          f"({5 * x.element_size()} bytes an element), {bound / ms:.4f} of "
+          f"it (two-pass traffic {two_pass:.6g} ms); the kernels' device "
+          f"time, forward + backward: {device}", flush=True)
+    if not (dx_share <= 1 and param_share <= 1
+            and launches == want_launches):
+        raise AssertionError(f"norm train {label}: dx {dx_share}, params "
+                             f"{param_share} of the tolerance or launches "
+                             f"{launches} != {want_launches}")
+    return {"label": label, "ms": ms, "composite_ms": old_ms,
+            "bound_ms": bound, "two_pass_ms": two_pass,
+            "fwd_device_ms": fwd_dev,
+            "bwd_device_ms": bwd_dev, "dx_tol_share": dx_share,
+            "param_tol_share": param_share, "per_step": count}
+
+
+def _norm_kernel_ms(torch, fn, calls: int = 5):
+    """Device ms a call of ``fn`` in the fused norm's forward kernels and
+    in its backward kernels, from ``torch.profiler``'s device events (the
+    events time what the host's enqueue hides at small shapes); (None,
+    None) where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    fwd = bwd = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "instance_norm_bwd" in e.name:
+            bwd += e.time_range.elapsed_us()
+        elif "instance_norm_" in e.name:
+            fwd += e.time_range.elapsed_us()
+    if fwd == 0:
+        return None, None
+    return fwd / calls / 1e3, bwd / calls / 1e3
+
+
+def norm_train_phase(torch) -> dict:
+    """The fused norm's training Function on the card at every norm shape
+    of Isensee2017's train step and at Swin UNETR's largest norm (see
+    ``NORM_TRAIN_SHAPES``); returns each shape's times and a step's sums."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = [_norm_train_case(torch, gen, *case) for case in NORM_TRAIN_SHAPES]
+    step = {key: sum(r[key] * r["per_step"] for r in rows)
+            for key in ("ms", "composite_ms", "bound_ms", "two_pass_ms")}
+    print(f"norm train isensee step's 27 norms, forward + backward: fused "
+          f"{step['ms']:.6g} ms, composite {step['composite_ms']:.6g} ms, "
+          f"bound {step['bound_ms']:.6g} ms (two-pass traffic "
+          f"{step['two_pass_ms']:.6g} ms)", flush=True)
+    return {"shapes": rows, "isensee_step": step}
+
+
 def swin_phase(torch) -> dict:
     """One serving forward of the swin_unetr preset (``SWIN_CONFIG``:
     feature size 48, bf16) on a batch of 4 96^3 patches, with weights from
@@ -943,6 +1130,88 @@ def swin_phase(torch) -> dict:
             f"!= {SWIN_ATTN_CALLS}")
     return {"launches": launches, "forward_ms": {"fused": fused_ms,
                                                  "composite": old_ms}}
+
+
+def swin_train_phase(torch) -> dict:
+    """One train step of the swin_unetr preset (``SWIN_CONFIG``: a batch of
+    4 96^3 patches, bf16, no augmentation) from ``init_parameters`` at seed
+    0, twice: with the fused norms, exactly ``SWIN_TRAIN_NORM_LAUNCHES``
+    launches, and with every norm on the composite, none; loss and every
+    gradient finite; the fused step's gradients against the composite's
+    (relative L2, worst and median leaf), the peak memory and the ms of two
+    more steps printed."""
+    import dataclasses
+    import statistics
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.models import build_model, layers
+    from fetal_mri_segmentation_tpu_torch.models.swin_unetr import (
+        init_parameters)
+    from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+        instance_norm_act, instance_norm_act_backward)
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+
+    config = dataclasses.replace(Config.load(str(ROOT / SWIN_CONFIG)),
+                                 augment=False)
+    x_np, y_np = train_batch(config)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    saved = layers._kernel_device
+    runs = {}
+    for name in ("fused", "composite"):
+        model = build_model(config, "cuda")
+        init_parameters(model, seed=0)
+        state = create_train_state(model, config)
+        step = make_train_step(
+            model, config,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        if name == "composite":
+            layers._kernel_device = lambda t: False
+        torch.cuda.reset_peak_memory_stats()
+        instance_norm_act.launches = instance_norm_act_backward.launches = 0
+        try:
+            loss = float(step(state, x, y)["loss"])
+            launches = (instance_norm_act.launches,
+                        instance_norm_act_backward.launches)
+            grads = {n: p.grad.float().clone()
+                     for n, p in model.named_parameters()}
+            ms = time_ms(torch, lambda: step(state, x, y), 2)
+        finally:
+            layers._kernel_device = saved
+        runs[name] = {"loss": loss, "launches": launches, "grads": grads,
+                      "ms": ms,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+        del model, state, step
+    fused, plain = runs["fused"], runs["composite"]
+    gaps = {n: _rel(g, plain["grads"][n])
+            for n, g in fused["grads"].items()}
+    worst = max(gaps, key=gaps.get)
+    finite = all(bool(torch.isfinite(g).all()) and math.isfinite(r["loss"])
+                 for r in runs.values() for g in r["grads"].values())
+    print(f"swin train step batch {config.batch_size} of "
+          f"{tuple(config.patch_shape)}: fused norm launches (forward, "
+          f"backward) {fused['launches']} (composite {plain['launches']}); "
+          f"loss {fused['loss']:.6g} fused, {plain['loss']:.6g} composite; "
+          f"{len(gaps)} gradients against the composite's: relative L2 "
+          f"median {statistics.median(gaps.values()):.6g}, worst "
+          f"{gaps[worst]:.6g} ({worst}); ms a step {fused['ms']:.6g} against "
+          f"{plain['ms']:.6g}; peak bytes {fused['peak_bytes']} against "
+          f"{plain['peak_bytes']}", flush=True)
+    if not (finite and fused["launches"] == SWIN_TRAIN_NORM_LAUNCHES
+            and plain["launches"] == (0, 0)):
+        raise AssertionError(
+            f"swin train step: non-finite loss or gradient, or launches "
+            f"{fused['launches']} != {SWIN_TRAIN_NORM_LAUNCHES} (composite "
+            f"{plain['launches']})")
+    return {"launches": fused["launches"],
+            "step_ms": {"fused": fused["ms"], "composite": plain["ms"]},
+            "peak_bytes": {"fused": fused["peak_bytes"],
+                           "composite": plain["peak_bytes"]},
+            "grad_gap": {"median": statistics.median(gaps.values()),
+                         "worst": gaps[worst]}}
 
 
 def wgmma_check(lib_path: Path) -> str:
@@ -1783,12 +2052,12 @@ def isensee_phase(torch, work: Path) -> dict:
     from fetal_mri_segmentation_tpu_torch.data.memory import InMemoryDataFile
     from fetal_mri_segmentation_tpu_torch.inference.predict import (
         build_serving_predictor, load_serving_model, preprocess_case)
-    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.models import build_model, layers
     from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock
     from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
     from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
     from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
-        instance_norm_act)
+        instance_norm_act, instance_norm_act_backward)
     from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
         get_training_and_validation_generators)
     from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
@@ -1954,6 +2223,7 @@ def isensee_phase(torch, work: Path) -> dict:
     y = torch.from_numpy(y_np).cuda()
     grads, losses = {}, {}
     config_32 = dataclasses.replace(config_off, compute_dtype="float32")
+    norm_launches = {}
     for name, cfg in (("on", config), ("off", config_off),
                       ("fp32", config_32)):
         cfg = dataclasses.replace(cfg, augment=False)
@@ -1962,10 +2232,24 @@ def isensee_phase(torch, work: Path) -> dict:
             model, cfg, generator=torch.Generator(device="cuda").manual_seed(0))
         want = (forwards(1, ISENSEE_PER_TRAIN) if name == "on"
                 else dict.fromkeys(ISENSEE_PER_TRAIN, 0))
-        # the fp32 reference in fp32 throughout (no TF32 in cuDNN)
+        # the fp32 reference in fp32 throughout (no TF32 in cuDNN), its
+        # norms on the composite (autograd's backward); the bf16 steps'
+        # 27 norms on the training Function: 54 forward launches, 81
+        # backward
         torch.backends.cudnn.allow_tf32 = name != "fp32"
-        metrics = counted(f"train step {name}", want,
-                          lambda: step(state, x, y))
+        saved = layers._kernel_device
+        if name == "fp32":
+            layers._kernel_device = lambda t: False
+        instance_norm_act.launches = instance_norm_act_backward.launches = 0
+        try:
+            metrics = counted(f"train step {name}", want,
+                              lambda: step(state, x, y))
+        finally:
+            layers._kernel_device = saved
+        norm_launches[name] = (instance_norm_act.launches,
+                               instance_norm_act_backward.launches)
+        launches[f"train step {name}"]["instance_norm_act"] = (
+            instance_norm_act.launches)
         torch.backends.cudnn.allow_tf32 = True
         losses[name] = float(metrics["loss"])
         grads[name] = {n: p.grad.float().clone()
@@ -2010,6 +2294,13 @@ def isensee_phase(torch, work: Path) -> dict:
           f"{losses['off']:.6g} without, {losses['fp32']:.6g} in fp32 (|on - "
           f"off| {abs(losses['on'] - losses['off']):.6g} <= tol {LOSS_TOL});"
           f" launches {launches['train step on']}", flush=True)
+    want_norm = {"on": NORM_TRAIN_LAUNCHES, "off": NORM_TRAIN_LAUNCHES,
+                 "fp32": (0, 0)}
+    print(f"isensee train step fused norm launches (forward, backward): "
+          f"{norm_launches}", flush=True)
+    if norm_launches != want_norm:
+        raise AssertionError(f"isensee train step norm launches "
+                             f"{norm_launches}, not {want_norm}")
     if zero:
         raise AssertionError(f"zero gradient with the kernels on: {zero}")
     if not (margin <= 1 and worst_bias[1] <= GRAD_REL_TOL):
@@ -4707,7 +4998,11 @@ def main() -> None:
     norm = norm_phase(torch)
     seconds["norm"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    norm["train"] = norm_train_phase(torch)
+    seconds["norm_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     swin = swin_phase(torch)
+    swin["train"] = swin_train_phase(torch)
     seconds["swin"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),

@@ -53,7 +53,7 @@ from fetal_mri_segmentation_tpu_torch.ops.dec0 import (
 from fetal_mri_segmentation_tpu_torch.ops.fold import (
     conv1_folded, conv3_folded, conv3_folded_stride2, up_conv3_folded)
 from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
-    instance_norm_act)
+    instance_norm_act, instance_norm_act_train)
 from fetal_mri_segmentation_tpu_torch.parallel.collectives import (
     all_gather_cat, all_reduce_sum_grad, halo_exchange, own_rows)
 
@@ -76,13 +76,16 @@ class InstanceNorm(nn.Module):
     clipped at 0). ``whole``: x is a level every rank holds whole, and the
     moments are x's own.
 
-    Where x is a CUDA tensor, autograd records nothing, no trace runs and
-    the moments are x's own (:meth:`_takes_kernel`), the norm and the
-    activation run as the fused kernel
-    ``ops/instance_norm.py::instance_norm_act`` (two launches), which
-    raises for a shape or type it does not take; everywhere else (the CPU,
-    training, depth slabs, ``torch.export``) as the plain fp32 ops of
-    :meth:`_composite`."""
+    Where x is a CUDA tensor, no trace runs and the moments are x's own
+    (:meth:`_takes_kernel`), the norm and the activation run as the fused
+    kernel of ``ops/instance_norm.py``, which raises for a shape or type
+    it does not take: with autograd recording nothing (serving),
+    ``instance_norm_act`` (two launches); while autograd records
+    (training), ``instance_norm_act_train``, the same two launches saving
+    x and the fp32 moments, with a hand-written backward (three launches).
+    Everywhere else (the CPU, depth slabs, ``torch.compile`` and
+    ``torch.export``) as the plain fp32 ops of :meth:`_composite`, whose
+    backward is autograd's."""
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.bfloat16,
                  device=None, group=None, eps: float = 1e-3,
@@ -101,7 +104,6 @@ class InstanceNorm(nn.Module):
 
     def _takes_kernel(self, x: torch.Tensor, whole: bool) -> bool:
         return ((self.group is None or whole) and _kernel_device(x)
-                and not torch.is_grad_enabled()
                 and not torch.compiler.is_compiling())
 
     def forward(self, x: torch.Tensor, whole: bool = False, fold: int = 1,
@@ -113,6 +115,10 @@ class InstanceNorm(nn.Module):
         volume's, since the fold permutes the same voxels. The kernel reads
         any fold as (B, N*F, C) and needs no ``fold``."""
         if self._takes_kernel(x, whole):
+            if torch.is_grad_enabled():
+                return instance_norm_act_train(
+                    x, self.scale, self.bias, activation, negative_slope,
+                    self.epsilon, self.dtype)
             return instance_norm_act(x, self.scale, self.bias, activation,
                                      negative_slope, self.epsilon, self.dtype)
         return self._composite(x, whole, fold, activation, negative_slope)

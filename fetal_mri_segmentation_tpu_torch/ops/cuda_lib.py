@@ -111,8 +111,17 @@ def library() -> ctypes.CDLL:
         _F, _P]
     # (x, y, part, scale, bias, geometry, eps, slope, stream)
     lib.fetal_instance_norm_act.argtypes = [_P] * 5 + [_SPECS, _F, _F, _P]
+    # (x, y, part, scale, bias, moments, geometry, eps, slope, stream)
+    lib.fetal_instance_norm_act_train.argtypes = [_P] * 6 + [
+        _SPECS, _F, _F, _P]
+    # (x, dy, dx, moments, part, scale, bias, dparams, geometry, slope,
+    # stream)
+    lib.fetal_instance_norm_act_backward.argtypes = [_P] * 8 + [
+        _SPECS, _F, _P]
     lib.fetal_conv3x3_bf16.restype = lib.fetal_dec0_bf16.restype = _I
     lib.fetal_instance_norm_act.restype = _I
+    lib.fetal_instance_norm_act_train.restype = _I
+    lib.fetal_instance_norm_act_backward.restype = _I
     return lib
 
 

@@ -56,6 +56,8 @@ from torch.autograd import profiler as _profiler
 from torch.utils.weak import WeakIdKeyDictionary
 
 PREFIX = "fetal."
+# the host op autograd's engine opens around each backward node it runs
+BACKWARD_OP = "autograd::engine::evaluate_function"
 # finished records kept; the oldest go first beyond it
 MAX_RECORDS = 1 << 16
 
@@ -178,22 +180,29 @@ def reset_spans() -> None:
 def span_device_ms(events) -> dict:
     """Per span name, the device ms of the operations launched while a
     span of that name was open: on the launching thread, or, for a thread
-    that opens no span (autograd's backward thread), on any thread.
-    Nested spans each count the operation; the key None sums the
-    operations launched outside every span. ``events``: a finished
-    ``torch.profiler`` session's ``prof.profiler.kineto_results.events()``
-    with host and device activities."""
+    that opens no span or that runs autograd's backward (whose own spans,
+    ``norm.backward``, nest in the step's spans on the thread that called
+    ``backward``), on any thread. Nested spans each count the operation;
+    the key None sums the operations launched outside every span.
+    ``events``: a finished ``torch.profiler`` session's
+    ``prof.profiler.kineto_results.events()`` with host and device
+    activities."""
     spans, launches, device = collections.defaultdict(list), {}, []
+    backward = set()
     for e in events:
         name, start = e.name(), e.start_ns()
         if e.device_type() != torch.autograd.DeviceType.CPU:
             # a range also shows on the device's timeline: no device work
             if not (name.startswith(PREFIX) or e.is_user_annotation()):
                 device.append((e.duration_ns(), e.linked_correlation_id()))
-        elif name.startswith(PREFIX):
+            continue
+        if name.startswith(PREFIX):
             spans[e.start_thread_id()].append(
                 (start, start + e.duration_ns(), name[len(PREFIX):]))
-        elif e.linked_correlation_id() == 0:
+            continue
+        if name.startswith(BACKWARD_OP):
+            backward.add(e.start_thread_id())
+        if e.linked_correlation_id() == 0:
             # a host op the profiler links device operations to
             launches[e.correlation_id()] = (e.start_thread_id(), start)
     out = collections.defaultdict(float)
@@ -201,7 +210,8 @@ def span_device_ms(events) -> dict:
         owners = set()
         if corr in launches:
             thread, at = launches[corr]
-            for th in ([thread] if spans.get(thread) else spans):
+            own = spans.get(thread) and thread not in backward
+            for th in ([thread] if own else spans):
                 owners |= {n for a, b, n in spans[th] if a <= at <= b}
         for name in owners or [None]:
             out[name] += dur / 1e6

@@ -257,6 +257,51 @@ def test_train_step_matches_reference_autograd(weights):
         assert gap <= GRAD * max(float(ref.grad.norm()), median), k
 
 
+def test_train_step_takes_the_norm_function(monkeypatch, weights):
+    """Routed as on the card, one train step sends the 26 residual-block
+    norms through the fused norm's training Function: 26 forward and 26
+    backward calls, none asking for a parameter gradient (the ones and
+    zeros are buffers), and the loss and gradients of the step with every
+    norm on the composite."""
+    from fetal_mri_segmentation_tpu_torch.ops import instance_norm as norm_ops
+
+    forward, backward = [], []
+    train = layers.instance_norm_act_train
+    bwd = norm_ops.instance_norm_act_backward
+
+    def counting_train(*args, **kw):
+        forward.append(args[3])
+        return train(*args, **kw)
+
+    def counting_backward(*args, params=True):
+        backward.append(params)
+        return bwd(*args, params=params)
+
+    monkeypatch.setattr(layers, "instance_norm_act_train", counting_train)
+    monkeypatch.setattr(norm_ops, "instance_norm_act_backward",
+                        counting_backward)
+    cfg = _cfg(32, augment=False, batch_size=2)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 1, 32, 32, 32, generator=g)
+    y = (torch.rand(2, 1, 32, 32, 32, generator=g) > 0.6).float()
+    runs = []
+    for on_card in (True, False):
+        monkeypatch.setattr(layers, "_kernel_device", lambda t: on_card)
+        model = _model(cfg, weights)
+        loss = float(make_train_step(model, cfg)(
+            create_train_state(model, cfg), x, y)["loss"].detach())
+        runs.append((loss, {k: v.grad for k, v in model.named_parameters()}))
+    assert len(forward) == len(backward) == 26
+    assert sorted(set(forward)) == ["leaky_relu", "none"]
+    assert not any(backward)
+    (loss, got), (want_loss, want) = runs
+    assert loss == pytest.approx(want_loss, abs=1e-6)
+    median = float(np.median([float(g.norm()) for g in want.values()]))
+    for k, ref in want.items():
+        gap = float((got[k] - ref).norm())
+        assert gap <= GRAD * max(float(ref.norm()), median), k
+
+
 def test_serving_predictor_matches_the_reference_window(weights):
     """``build_serving_predictor`` (the ``predict`` CLI's) on a 32 x 32 x
     40 volume in two overlapping 32^3 patches (overlap 8), against the

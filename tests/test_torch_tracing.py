@@ -218,6 +218,67 @@ def test_one_train_step_is_one_request(augment):
     assert {"fetal." + n for n in TRAIN} <= {e.name() for e in events}
 
 
+def test_norm_backward_spans_join_the_train_step(monkeypatch):
+    """With the norms on the training Function (routed there on the CPU),
+    each norm's backward is one ``norm.backward`` span under the step's
+    request, and the step stays one request."""
+    from fetal_mri_segmentation_tpu_torch.models import layers
+
+    monkeypatch.setattr(layers, "_kernel_device", lambda x: True)
+    cfg = Config(model_name="isensee", depth=3, n_base_filters=8,
+                 n_segmentation_levels=2, patch_shape=(16, 16, 16),
+                 batch_size=2, compute_dtype="float32", fold_level0="off",
+                 augment=False)
+    torch.manual_seed(0)
+    model = build_model(cfg, "cpu")
+    norms = sum(isinstance(m, layers.InstanceNorm) for m in model.modules())
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, cfg,
+                           generator=torch.Generator().manual_seed(0))
+    x = torch.randn((2, 1, 16, 16, 16))
+    y = (x > 0.5).float()
+    metrics, records, events = _profiled(lambda: step(state, x, y))
+    assert torch.isfinite(metrics["loss"])
+    counts = Counter(r["name"] for r in records)
+    assert counts == {**dict.fromkeys(TRAIN, 1), "norm.backward": norms}
+    assert norms == 15
+    assert len({r["request"] for r in records}) == 1
+    assert "fetal.norm.backward" in {e.name() for e in events}
+
+
+def test_tagged_ctx_joins_a_span_on_another_thread():
+    """What the fused norm's Function does for autograd's CUDA backward
+    thread: its ctx, tagged in the forward on the step's thread, gives a
+    span opened on another thread the step's request; tagged outside every
+    span, none."""
+    profiling.reset_spans()
+
+    class Ctx:  # stands in for an autograd Function's ctx
+        pass
+
+    loose, ctx = Ctx(), Ctx()
+    seen = []
+
+    def later(obj):
+        with profiling.span("norm.backward",
+                            request=profiling.request_of(obj)):
+            pass
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.tag(loose)
+        with profiling.span("train.step") as top:
+            profiling.tag(ctx)
+        worker = threading.Thread(target=later, args=(ctx,))
+        worker.start()
+        worker.join()
+        seen = [profiling.request_of(ctx), profiling.request_of(loose)]
+    records = {r["name"]: r for r in profiling.span_records()}
+    assert seen == [top.request, None]
+    assert records["norm.backward"]["request"] == top.request
+    assert records["norm.backward"]["parent"] is None
+
+
 def test_trace_writes_the_spans_beside_the_chrome_trace(tmp_path):
     profiling.reset_spans()
     with torch.profiler.profile(
@@ -341,6 +402,29 @@ def test_span_device_ms_gives_each_span_what_launched_inside_it():
     got = profiling.span_device_ms(events)
     assert got == pytest.approx({"window.case": 10.0, "window.model": 8.0,
                                  "ingest.write": 3.25, None: 1.5})
+
+
+def test_span_device_ms_counts_the_backward_thread_in_every_span():
+    """Autograd's backward thread opens its own ``norm.backward`` spans:
+    what it launches counts for those and for the step's spans open on
+    the thread that called backward."""
+    launch = lambda corr, at: _Event(  # noqa: E731
+        "cudaLaunchKernel", at, 0.01, thread=2, corr=corr)
+    kernel = lambda link, dur: _Event(  # noqa: E731
+        "kernel", 500, dur, device=True, link=link)
+    events = [
+        _Event("fetal.train.step", 0, 100),
+        _Event("fetal.train.backward", 50, 50),
+        _Event("autograd::engine::evaluate_function: _InstanceNormActBackward",
+               60, 10, thread=2),
+        _Event("fetal.norm.backward", 61, 4, thread=2),
+        launch(1, 62), kernel(1, 4.0),  # the norm's backward
+        launch(2, 68), kernel(2, 1.0),  # another node's
+        launch(3, 120), kernel(3, 0.5),  # after the step
+    ]
+    got = profiling.span_device_ms(events)
+    assert got == pytest.approx({"train.step": 5.0, "train.backward": 5.0,
+                                 "norm.backward": 4.0, None: 0.5})
 
 
 # ---------------------------------------------------- perfbench/spans.py

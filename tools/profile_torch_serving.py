@@ -60,26 +60,28 @@ def profile(run, label: str, trace_dir=None, top: int = 12,
     from torch.profiler import profile as torch_profile
 
     from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
-        instance_norm_act)
+        instance_norm_act, instance_norm_act_backward)
     from fetal_mri_segmentation_tpu_torch.utils.profiling import (
         reset_spans, span_device_ms, span_records)
 
     run()
     torch.cuda.synchronize()
-    instance_norm_act.launches = 0
+    instance_norm_act.launches = instance_norm_act_backward.launches = 0
     t0 = time.perf_counter()
     for _ in range(3):
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3
     norm_launches = instance_norm_act.launches / 3
+    backward_launches = instance_norm_act_backward.launches / 3
     reset_spans()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     print(f"{label}: {wall:.4f} s/{unit} (host clock, 3 runs)")
-    print(f"{label}: fused norm launches per {unit}: {norm_launches:g}")
+    print(f"{label}: fused norm launches per {unit}: {norm_launches:g} "
+          f"forward, {backward_launches:g} backward")
     print_spans(span_records(),
                 span_device_ms(prof.profiler.kineto_results.events()),
                 label, unit)
