@@ -34,9 +34,10 @@
 //     reads x once more in 16-byte vectors, four in flight a thread, and
 //     writes y in T. scale and bias are read as fp32 through their pointers.
 //
-// Training (fetal_instance_norm_act_train, then fetal_instance_norm_act_
-// backward; ops/instance_norm.py's autograd Function) replaces the
-// composite's forward and autograd's fp32 backward of it:
+// Training (fetal_instance_norm_act with a moments pointer, then
+// fetal_instance_norm_act_backward; ops/instance_norm.py's autograd
+// Function) replaces the composite's forward and autograd's fp32 backward
+// of it:
 //   forward: the same two launches, the apply launch instantiated apart
 //     (instance_norm_apply_save) so that the first block of each sample
 //     also writes the sample's fp32 (mean, rstd) per channel, the moments
@@ -558,7 +559,7 @@ __global__ void __launch_bounds__(kNormThreads)
 template <typename T>
 int launch_pair(const void* x, void* y, void* part, const void* scale, const void* bias, int B,
                 long long rows, int C, int chunks, long long chunk_rows, int blocks, float eps,
-                int act, float slope, cudaStream_t stream, void* moments = nullptr) {
+                int act, float slope, cudaStream_t stream, void* moments) {
   instance_norm_stats<T><<<dim3(chunks, B), kNormThreads, 0, stream>>>(
       static_cast<const T*>(x), rows, C, chunk_rows, static_cast<float*>(part));
   const cudaError_t e = cudaGetLastError();
@@ -608,31 +609,15 @@ int launch_backward(const void* x, const void* dy, void* dx, const void* moments
 
 // x, y: (B, rows, C) contiguous, bf16 or fp32; part: B x chunks x C x 2
 // floats of scratch; scale, bias: (C,) fp32. C % 8 == 0, C <= 1024.
+// moments: null when serving; in training (2, B, C) fp32, which the apply
+// launch writes: mean, then rstd.
 // geom = (B, rows, C, chunks, chunk_rows, blocks, is_bf16, act), field for
 // field ops/instance_norm.py::_geometry: chunk k of a sample covers rows
 // [k * chunk_rows, (k + 1) * chunk_rows); act 0 none, 1 relu, 2 leaky_relu
 // (ops/cuda_lib.py::ACTIVATIONS).
 extern "C" int fetal_instance_norm_act(const void* x, void* y, void* part, const void* scale,
-                                       const void* bias, const long long* geom, float eps,
-                                       float slope, void* stream) {
-  using namespace fetal;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int B = static_cast<int>(geom[0]), C = static_cast<int>(geom[2]);
-  const int chunks = static_cast<int>(geom[3]), blocks = static_cast<int>(geom[5]);
-  const int act = static_cast<int>(geom[7]);
-  if (geom[6])
-    return launch_pair<bf16>(x, y, part, scale, bias, B, geom[1], C, chunks, geom[4], blocks,
-                             eps, act, slope, s);
-  return launch_pair<float>(x, y, part, scale, bias, B, geom[1], C, chunks, geom[4], blocks,
-                            eps, act, slope, s);
-}
-
-// The training forward: fetal_instance_norm_act's two launches, the apply
-// launch writing moments, (2, B, C) fp32: mean, then rstd.
-extern "C" int fetal_instance_norm_act_train(const void* x, void* y, void* part, const void* scale,
-                                             const void* bias, void* moments,
-                                             const long long* geom, float eps, float slope,
-                                             void* stream) {
+                                       const void* bias, void* moments, const long long* geom,
+                                       float eps, float slope, void* stream) {
   using namespace fetal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int B = static_cast<int>(geom[0]), C = static_cast<int>(geom[2]);
@@ -645,8 +630,8 @@ extern "C" int fetal_instance_norm_act_train(const void* x, void* y, void* part,
                             eps, act, slope, s, moments);
 }
 
-// The backward of fetal_instance_norm_act_train with the same geom: x, dy,
-// dx (B, rows, C) in T; moments as the forward wrote them; part B x chunks
+// The backward of the training forward with the same geom: x, dy, dx
+// (B, rows, C) in T; moments as the forward wrote them; part B x chunks
 // x C x 2 floats of scratch; dparams (2, C) fp32, dscale then dbias, or
 // null for no parameter gradient (two launches, not three).
 extern "C" int fetal_instance_norm_act_backward(const void* x, const void* dy, void* dx,

@@ -482,11 +482,7 @@ class ConvBlock(nn.Module):
             return w.to(self.dtype).permute(0, 2, 3, 4, 1).contiguous(
                 ).permute(1, 2, 3, 4, 0)
 
-        weight = self.conv.weight
-        if torch.is_grad_enabled() and weight.requires_grad:
-            return dhwio(weight)
-        return cached(weight, ("dhwio", self.dtype),
-                      lambda w: dhwio(w.detach()))
+        return cached(self.conv.weight, ("dhwio", self.dtype), dhwio)
 
     def forward(self, x, whole: bool = False, fold=None,
                 form: str = "dense") -> torch.Tensor:
@@ -640,10 +636,7 @@ def _part(kernel: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """Input channels [lo, hi) of a DHWIO kernel, one tensor per version of
     ``kernel`` (outside autograd), so the folded weights made from it are
     kept too."""
-    if torch.is_grad_enabled() and kernel.requires_grad:
-        return kernel[:, :, :, lo:hi]
-    return cached(kernel, ("channels", lo, hi),
-                  lambda k: k[:, :, :, lo:hi])
+    return cached(kernel, ("channels", lo, hi), lambda k: k[:, :, :, lo:hi])
 
 
 class UpConv(nn.Module):

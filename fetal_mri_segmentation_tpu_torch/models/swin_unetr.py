@@ -76,13 +76,10 @@ MULTIPLE = 2 ** 5
 
 
 def _cast(p: Optional[torch.Tensor], dtype: torch.dtype):
-    """``p`` in ``dtype``: afresh while autograd records it, else once per
-    version of ``p``."""
+    """``p`` in ``dtype`` under ``cached``'s rule; None passes through."""
     if p is None:
         return None
-    if torch.is_grad_enabled() and p.requires_grad:
-        return p.to(dtype)
-    return cached(p, ("dtype", dtype), lambda t: t.detach().to(dtype))
+    return cached(p, ("dtype", dtype), lambda t: t.to(dtype))
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -148,12 +145,8 @@ class WindowAttention(nn.Module):
     def forward(self, q, k, v, table, mask, mask_key):
         n = q.shape[-2]
         index = self.relative_position_index
-        if torch.is_grad_enabled() and table.requires_grad:
-            bias = wa.attention_bias(table, index, n, mask, q.dtype)
-        else:
-            bias = cached(table, ("attention_bias", n, mask_key, q.dtype),
-                          lambda t: wa.attention_bias(t.detach(), index, n,
-                                                      mask, q.dtype))
+        bias = cached(table, ("attention_bias", n, mask_key, q.dtype),
+                      lambda t: wa.attention_bias(t, index, n, mask, q.dtype))
         return wa.window_attention(q, k, v, bias)
 
 
@@ -352,12 +345,9 @@ class TransposedConv(nn.Module):
                                        device=device)
 
     def forward(self, x):
-        w = self.conv.weight
-        if torch.is_grad_enabled() and w.requires_grad:
-            w = w.to(x.dtype).contiguous(memory_format=torch.channels_last_3d)
-        else:
-            w = cached(w, ("transposed", x.dtype), lambda t: t.detach().to(
-                x.dtype).contiguous(memory_format=torch.channels_last_3d))
+        w = cached(self.conv.weight, ("transposed", x.dtype),
+                   lambda t: t.to(x.dtype).contiguous(
+                       memory_format=torch.channels_last_3d))
         y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, stride=2)
         return y.permute(0, 2, 3, 4, 1)
 

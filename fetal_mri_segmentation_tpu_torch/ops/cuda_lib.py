@@ -109,18 +109,15 @@ def library() -> ctypes.CDLL:
         _F, _P]
     lib.fetal_dec0_bf16.argtypes = [_SPECS, _INTS, _P, _P] + [_I] * 3 + [
         _F, _P]
-    # (x, y, part, scale, bias, geometry, eps, slope, stream)
-    lib.fetal_instance_norm_act.argtypes = [_P] * 5 + [_SPECS, _F, _F, _P]
-    # (x, y, part, scale, bias, moments, geometry, eps, slope, stream)
-    lib.fetal_instance_norm_act_train.argtypes = [_P] * 6 + [
-        _SPECS, _F, _F, _P]
+    # (x, y, part, scale, bias, moments or null, geometry, eps, slope,
+    # stream)
+    lib.fetal_instance_norm_act.argtypes = [_P] * 6 + [_SPECS, _F, _F, _P]
     # (x, dy, dx, moments, part, scale, bias, dparams, geometry, slope,
     # stream)
     lib.fetal_instance_norm_act_backward.argtypes = [_P] * 8 + [
         _SPECS, _F, _P]
     lib.fetal_conv3x3_bf16.restype = lib.fetal_dec0_bf16.restype = _I
     lib.fetal_instance_norm_act.restype = _I
-    lib.fetal_instance_norm_act_train.restype = _I
     lib.fetal_instance_norm_act_backward.restype = _I
     return lib
 
@@ -143,18 +140,30 @@ def check_launch(name: str, err: int) -> None:
 
 
 def cached(t: torch.Tensor, key, make):
-    """``make(t)``, computed once per version of ``t`` and kept on ``t``.
+    """``make(t)``, computed once per version of ``t`` and kept on ``t``,
+    except while autograd records through ``t``.
 
-    A kernel's prepared operand (a transposed or pre-summed weight) lives as
-    long as the tensor it came from. It is made again after an in-place
-    change to ``t`` (which bumps ``t._version``: optimizer steps,
-    ``load_state_dict``, ``copy_``), a new storage or a move to another
-    device. Writes through ``t.data`` bypass the version counter and are
-    not seen. An inference tensor has no version counter and cannot be
-    changed outside inference mode; its first result stands. While
-    ``torch.export`` traces, ``t`` is a fake tensor with no storage: the
-    result is made and not kept, as plain ops of the traced program."""
-    if torch.compiler.is_compiling():
+    The one rule for every operand made from a parameter (a cast to the
+    compute dtype, a re-layout, a kernel's transposed or pre-summed
+    weight). While autograd records through ``t`` the operand is made
+    afresh from ``t`` on every call, so that the gradient reaches ``t``
+    and nothing made from it outlives an optimizer step. Otherwise it is
+    made from ``t.detach()`` and lives as long as the tensor it came from.
+    It is made again after an in-place change to ``t`` (which bumps
+    ``t._version``: optimizer steps, ``load_state_dict``, ``copy_``), a new
+    storage or a move to another device. Writes through ``t.data`` bypass
+    the version counter and are not seen. An inference tensor has no
+    version counter and cannot be changed outside inference mode; its
+    first result stands. While ``torch.export`` traces, ``t`` is a fake
+    tensor with no storage: the result is made and not kept, as plain ops
+    of the traced program.
+
+    Four sites still cast or re-lay out a weight on every call and do not
+    yet follow it: ``models/layers.py::ConvBlock._plain_conv`` and
+    ``UpConv.forward``, ``ops/conv3x3.py::conv3d_ndhwc`` and
+    ``conv3x3_chain``."""
+    if torch.compiler.is_compiling() or (torch.is_grad_enabled()
+                                         and t.requires_grad):
         return make(t)
     stamp = (None if t.is_inference() else t._version, t.data_ptr(),
              t.device, t.dtype)
@@ -162,7 +171,7 @@ def cached(t: torch.Tensor, key, make):
     hit = store.get(key)
     if hit is not None and hit[0] == stamp:
         return hit[1]
-    value = make(t)
+    value = make(t.detach())
     store[key] = (stamp, value)
     return value
 

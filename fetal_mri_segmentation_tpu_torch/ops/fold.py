@@ -131,14 +131,6 @@ def _parities(factors: Factors) -> Tuple[Tuple[int, int, int], ...]:
                  for s1 in range(f1) for s2 in range(f2) for s3 in range(f3))
 
 
-def _prepared(kernel: torch.Tensor, key, make):
-    """``make(kernel)``, kept on ``kernel`` once per version of it, except
-    while autograd records through it (the gradient must reach it)."""
-    if torch.is_grad_enabled() and kernel.requires_grad:
-        return make(kernel)
-    return cached(kernel, key, make)
-
-
 def _oidhw(w_dhwio: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A DHWIO kernel as the channels-last OIDHW weight ``conv3d_ndhwc``
     takes without a copy."""
@@ -217,7 +209,7 @@ def conv3_folded(xf: torch.Tensor, kernel: torch.Tensor,
 
     xpad = _pad_cells(xf, 1, 1)
     if formulation == "parity":
-        weights = _prepared(kernel, ("fold parity", factors, dt), lambda k: [
+        weights = cached(kernel, ("fold parity", factors, dt), lambda k: [
             _oidhw(_parity_kernel(k, factors, p), dt) for p in pars])
         y = torch.cat([conv3d_ndhwc(_parity_window(xpad, factors, p), w)
                        for p, w in zip(pars, weights)], dim=-1)
@@ -227,18 +219,18 @@ def conv3_folded(xf: torch.Tensor, kernel: torch.Tensor,
         # its own kernel: the windows stacked on the channel axis and one
         # grouped conv, a group per parity, whose output channels are the
         # parity-major order of the concatenation above.
-        weight = _prepared(kernel, ("fold parity_batched", factors, dt),
-                           lambda k: torch.cat([
-                               _oidhw(_parity_kernel(k, factors, p), dt)
-                               for p in pars]).contiguous(
-                                   memory_format=torch.channels_last_3d))
+        weight = cached(kernel, ("fold parity_batched", factors, dt),
+                        lambda k: torch.cat([
+                            _oidhw(_parity_kernel(k, factors, p), dt)
+                            for p in pars]).contiguous(
+                                memory_format=torch.channels_last_3d))
         stack = torch.cat([_parity_window(xpad, factors, p) for p in pars],
                           dim=-1)
         y = F.conv3d(stack.permute(0, 4, 1, 2, 3), weight,
                      groups=len(pars)).permute(0, 2, 3, 4, 1)
     elif formulation == "dense":
-        weight = _prepared(kernel, ("fold dense", factors, dt),
-                           lambda k: _oidhw(_dense_kernel(k, factors), dt))
+        weight = cached(kernel, ("fold dense", factors, dt),
+                        lambda k: _oidhw(_dense_kernel(k, factors), dt))
         y = conv3d_ndhwc(xpad, weight)
     else:
         raise ValueError(f"unknown formulation {formulation!r}")
@@ -268,9 +260,9 @@ def conv3_folded_stride2(xf: torch.Tensor, kernel: torch.Tensor,
                 f"conv3_folded_stride2 requires even spatial dims (SAME "
                 f"stride-2 pads odd axes differently); axis {ax} has {d}")
     dt = xf.dtype
-    weight = _prepared(kernel, ("fold stride2", factors, dt),
-                       lambda k: _oidhw(
-                           _parity_kernel(k, factors, (2, 2, 2)), dt))
+    weight = cached(kernel, ("fold stride2", factors, dt),
+                    lambda k: _oidhw(
+                        _parity_kernel(k, factors, (2, 2, 2)), dt))
     # folded axes: pad 1 cell right, a VALID 2-window at stride 1 on the
     # cell grid; unfolded axes: the explicit (0, 1) pad, stride 2
     strides = tuple(1 if f == 2 else 2 for f in factors)
@@ -316,7 +308,7 @@ def up_conv3_folded(x_deep: torch.Tensor, kernel_up: torch.Tensor,
     co = kernel_up.shape[-1]
     dt = x_deep.dtype
     # the eight parities' 2^3 kernels, (r1, r2, r3) row-major
-    weights = _prepared(kernel_up, ("fold up", dt), lambda k: [
+    weights = cached(kernel_up, ("fold up", dt), lambda k: [
         _oidhw(w, dt) for w in parity_up_weights(k).flatten(0, 2)])
     xpad = _pad_cells(x_deep, 1, 1)
     outs = [conv3d_ndhwc(xpad[:, r1:r1 + d + 1, r2:r2 + h + 1,

@@ -31,10 +31,11 @@ records nothing (serving).
 Where autograd records (training), the layers route to
 :func:`instance_norm_act_train` (``InstanceNorm._takes_kernel``), an
 autograd Function over the same kernels. Its forward makes the same two
-launches through a second C entry, whose apply launch (instantiated apart,
-so that serving writes no moments) also writes the per-(sample, channel)
-fp32 mean and rstd; it saves x and those (2, B, C)
-moments and counts its launches in ``instance_norm_act.launches``. Its
+launches through the same C entry, given a moments pointer where serving
+passes null: the apply launch (instantiated apart, so that serving writes
+no moments) then also writes the per-(sample, channel) fp32 mean and rstd.
+It saves x and those (2, B, C) moments and counts its launches in
+``instance_norm_act.launches``. Its
 backward, :func:`instance_norm_act_backward`, makes three launches (the
 partial sums of dz and dz * x^ per chunk of rows, then dx, then dscale and
 dbias summed in a fixed order; two where neither ``scale`` nor ``bias``
@@ -245,17 +246,13 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     # launches on one stream run in order, so the scratch may go back to
     # the caching allocator as soon as both are enqueued
     part = torch.empty(part_numel, dtype=torch.float32, device=x.device)
-    args = (x.data_ptr(), y.data_ptr(), part.data_ptr(), scale.data_ptr(),
-            bias.data_ptr())
-    if not train:
-        _run("fetal_instance_norm_act", PROFILER_NAME,
-             (*args, geom, eps, negative_slope), device)
-        return y
-    moments = torch.empty(2, geom[0], scale.shape[0], dtype=torch.float32,
-                          device=x.device)
-    _run("fetal_instance_norm_act_train", PROFILER_NAME,
-         (*args, moments.data_ptr(), geom, eps, negative_slope), device)
-    return y, x, moments
+    moments = (torch.empty(2, geom[0], scale.shape[0], dtype=torch.float32,
+                           device=x.device) if train else None)
+    _run("fetal_instance_norm_act", PROFILER_NAME,
+         (x.data_ptr(), y.data_ptr(), part.data_ptr(), scale.data_ptr(),
+          bias.data_ptr(), moments.data_ptr() if train else None, geom, eps,
+          negative_slope), device)
+    return (y, x, moments) if train else y
 
 
 def _launch_backward(dy: torch.Tensor, x: torch.Tensor,

@@ -8,8 +8,9 @@ up_concat_conv3x3_pallas``, whose forwards run in interpret mode here (as
 versions inside the same ``autograd.Function`` that wraps the kernel on the
 card. Then the whole ``UNet3D`` with both switches on against
 ``jax.grad`` of the JAX model with its Pallas switches on, the routes under
-``torch.utils.checkpoint`` and the prepared-weight caches across an
-optimizer step.
+``torch.utils.checkpoint``, the prepared-weight caches across an
+optimizer step, and every site that keeps an operand made from a parameter
+under ``cuda_lib.cached``'s one rule.
 
 Tolerance: fp32 throughout; atol 1e-4 + rtol 1e-4 on the VJPs (fp32 conv
 sums taken in another order by XLA and by PyTorch), 2e-4 on the model's
@@ -29,10 +30,15 @@ from fetal_mri_segmentation_tpu.models.unet3d import UNet3D as JaxUNet3D  # noqa
 from fetal_mri_segmentation_tpu.ops import pallas_conv as PC  # noqa: E402
 from fetal_mri_segmentation_tpu.ops import pallas_conv_flat as PCF  # noqa: E402
 from fetal_mri_segmentation_tpu.ops import pallas_dec0 as PD  # noqa: E402
-from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock  # noqa: E402
+from torch import nn  # noqa: E402
+
+from fetal_mri_segmentation_tpu_torch.models import swin_unetr as swin  # noqa: E402
+from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock, _part  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models.unet3d import UNet3D  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as C  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.ops import dec0 as D  # noqa: E402
+from fetal_mri_segmentation_tpu_torch.ops import fold  # noqa: E402
+from fetal_mri_segmentation_tpu_torch.ops import window_attention as wa  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.ops.cuda_lib import cached  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.training.state import KerasAdam  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.utils.params import from_flax  # noqa: E402
@@ -254,3 +260,129 @@ def test_prepared_weights_follow_optimizer_steps():
         kmajor = C.kmajor_weight(k1)
         assert kmajor.is_contiguous() and kmajor.data_ptr() == k1.data_ptr()
     assert block._kernel_dhwio() is not block._kernel_dhwio()
+
+
+BF16 = torch.bfloat16
+FOLD = (1, 1, 2)
+
+
+def _spy(monkeypatch, owner, name, position):
+    """Patch ``owner.name`` to record the argument at ``position`` of each
+    call; returns the list the calls append to."""
+    seen = []
+    real = getattr(owner, name)
+
+    def spy(*args, **kwargs):
+        seen.append(args[position])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(owner, name, spy)
+    return seen
+
+
+def _recorded(seen, call):
+    """The operands ``call`` passes to a spied function."""
+    del seen[:]
+    call()
+    return list(seen)
+
+
+def _dhwio_case(monkeypatch):
+    block = ConvBlock(8, 8, dtype=BF16)
+    w = block.conv.weight
+    return w, lambda: [block._kernel_dhwio()], lambda: [
+        w.to(BF16).permute(2, 3, 4, 1, 0)]
+
+
+def _part_case(monkeypatch):
+    block = ConvBlock(16, 8, dtype=BF16)
+    w = block.conv.weight
+    return w, lambda: [_part(block._kernel_dhwio(), 8, 16)], lambda: [
+        w.to(BF16).permute(2, 3, 4, 1, 0)[:, :, :, 8:16]]
+
+
+def _fold_case(form):
+    def case(monkeypatch):
+        kernel = nn.Parameter(torch.randn(3, 3, 3, 4, 4))
+        xf = torch.randn(1, 2, 2, 2, 8, dtype=BF16)
+        seen = _spy(monkeypatch, fold, "conv3d_ndhwc", 1)
+
+        def fresh():
+            if form == "dense":
+                return [fold._oidhw(fold._dense_kernel(kernel, FOLD), BF16)]
+            return [fold._oidhw(fold._parity_kernel(kernel, FOLD, p), BF16)
+                    for p in fold._parities(FOLD)]
+        return kernel, lambda: _recorded(seen, lambda: fold.conv3_folded(
+            xf, kernel, None, FOLD, formulation=form)), fresh
+    return case
+
+
+def _linear_case(monkeypatch):
+    lin = nn.Linear(8, 8)
+    x = torch.randn(2, 8, dtype=BF16)
+    seen = _spy(monkeypatch, torch.nn.functional, "linear", 1)
+    return lin.weight, lambda: _recorded(seen, lambda: swin._linear(
+        x, lin)), lambda: [lin.weight.to(BF16)]
+
+
+def _layer_norm_case(monkeypatch):
+    norm = nn.LayerNorm(8)
+    x = torch.randn(2, 8, dtype=BF16)
+    seen = _spy(monkeypatch, torch.nn.functional, "layer_norm", 2)
+    return norm.weight, lambda: _recorded(seen, lambda: swin._layer_norm(
+        x, norm)), lambda: [norm.weight.to(BF16)]
+
+
+def _transposed_case(monkeypatch):
+    up = swin.TransposedConv(8, 4)
+    x = torch.randn(1, 2, 2, 2, 8, dtype=BF16)
+    seen = _spy(monkeypatch, torch.nn.functional, "conv_transpose3d", 1)
+    w = up.conv.weight
+    return w, lambda: _recorded(seen, lambda: up(x)), lambda: [
+        w.to(BF16).contiguous(memory_format=torch.channels_last_3d)]
+
+
+def _attention_bias_case(monkeypatch):
+    att = swin.WindowAttention()
+    table = nn.Parameter(torch.randn((2 * swin.WINDOW - 1) ** 3, 2))
+    q = torch.randn(1, 1, 2, 8, 4, dtype=BF16)
+    seen = _spy(monkeypatch, wa, "attention_composite", 3)
+    return table, lambda: _recorded(seen, lambda: att(
+        q, q, q, table, None, None)), lambda: [wa.attention_bias(
+            table, att.relative_position_index, 8, None, BF16)]
+
+
+OPERAND_CASES = {
+    "dhwio": _dhwio_case,
+    "part": _part_case,
+    "fold_dense": _fold_case("dense"),
+    "fold_parity": _fold_case("parity"),
+    "swin_linear": _linear_case,
+    "swin_layer_norm": _layer_norm_case,
+    "transposed_conv": _transposed_case,
+    "attention_bias": _attention_bias_case,
+}
+
+
+@pytest.mark.parametrize("case", list(OPERAND_CASES))
+def test_operands_made_from_a_parameter_follow_one_rule(monkeypatch, case):
+    """Every site that keeps an operand made from a parameter follows
+    ``cuda_lib.cached``'s rule: outside autograd one operand per version of
+    the parameter, made again, equal bit for bit to a fresh make, after
+    ``copy_`` into it; while autograd records, a new operand on every call
+    whose gradient reaches the parameter."""
+    torch.manual_seed(3)
+    param, operands, fresh = OPERAND_CASES[case](monkeypatch)
+    with torch.no_grad():
+        first = operands()
+        assert first and all(a is b for a, b in zip(first, operands()))
+        param.copy_(torch.randn_like(param))
+        after = operands()
+        for a, want, old in zip(after, fresh(), first):
+            assert a is not old
+            torch.testing.assert_close(a, want, atol=0, rtol=0)
+    made, again = operands(), operands()
+    for a, b in zip(made, again):
+        assert a is not b and a.grad_fn is not None
+    grad, = torch.autograd.grad(sum(a.float().sum() for a in made), param)
+    assert grad.abs().sum() > 0
