@@ -229,6 +229,21 @@ sliding-window case), and the ``kernels`` line carries an
 ``instance_norm_act`` entry with the norm phase's shapes (``ms``,
 ``bound_ms``) and those counts.
 
+The adam phase holds A1, the multi-tensor Keras Adam
+(``ops/keras_adam.py``), to the eager update of one leaf at a time at the
+leaf sets of the three models' train steps (``ADAM_MODELS``: Isensee2017's
+114 leaves, the U-Net's 30, Swin UNETR's 151): ``ADAM_STEPS`` steps from
+the same weights and gradients with a learning-rate change after two, p,
+m and v bit for bit, the launches (one for up to 80 leaves) and leaves
+counted. Then it times three routes of the same update: A1, the same
+operations in PyTorch's multi-tensor ``_foreach_`` ops, and the eager
+update: host ms a step unprofiled, device ms by CUDA events and by the
+profiler's kernels, kernels a step, beside A1's bound (``ADAM_BYTES`` a
+parameter over the HBM rate). The train phase counts one A1 launch a U-Net
+step (its gradient check's steps and ``train_model``), the isensee phase
+two an Isensee2017 step, and the ``kernels`` line carries a ``keras_adam``
+entry with the phase's numbers and those counts.
+
 Then one JSON line describing the kernels, and the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; without CUDA it exits non-zero before printing any result.
@@ -570,6 +585,15 @@ KERNELS = {
 }
 # the fused InstanceNorm + activation; no TPU kernel counterpart
 NORM_SOURCE = "fetal_mri_segmentation_tpu_torch/csrc/instance_norm.cu"
+# A1, the multi-tensor Keras Adam; no TPU kernel counterpart
+ADAM_SOURCE = "fetal_mri_segmentation_tpu_torch/csrc/keras_adam.cu"
+# the leaf sets A1 is held to: model, config, leaves, launches a step
+ADAM_MODELS = (("isensee", "configs/fetal_isensee.json", 114, 2),
+               ("unet", "configs/fetal_unet.json", 30, 1),
+               ("swin_unetr", SWIN_CONFIG, 151, 2))
+ADAM_STEPS = 5
+# bytes a parameter of one update: p, g, m and v read; p, m and v written
+ADAM_BYTES = 28
 
 
 def time_ms(torch, fn, iters: int = 10) -> float:
@@ -1214,6 +1238,145 @@ def swin_train_phase(torch) -> dict:
                          "worst": gaps[worst]}}
 
 
+def _foreach_keras_adam(table, grads, alphas, b1, b2, eps, lr):
+    """The eager update's operations in its order, each over every leaf at
+    once in PyTorch's multi-tensor ``_foreach_`` ops: the library route A1
+    is timed against, called as ``ops/keras_adam.py::keras_adam`` (the
+    leaves and moments are the table's ``written``)."""
+    import numpy as np
+    import torch
+
+    n = len(grads)
+    params, mus, nus = (table.written[i * n:(i + 1) * n] for i in range(3))
+    torch._foreach_mul_(mus, b1)
+    torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+    torch._foreach_mul_(nus, b2)
+    sq = torch._foreach_mul(grads, 1 - b2)
+    torch._foreach_mul_(sq, grads)
+    torch._foreach_add_(nus, sq)
+    update = torch._foreach_mul(mus, list(alphas))
+    den = torch._foreach_sqrt(nus)
+    torch._foreach_add_(den, eps)
+    torch._foreach_div_(update, den)
+    torch._foreach_mul_(update, -float(np.float32(lr)))
+    torch._foreach_add_(params, update)
+
+
+def adam_phase(torch) -> dict:
+    """A1 against the eager update at each leaf set of ``ADAM_MODELS``, bit
+    for bit, and the three routes' times (see the module docstring);
+    returns each model's numbers."""
+    import statistics
+
+    from torch import nn
+    from torch.profiler import ProfilerActivity, profile
+
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.models import build_model
+    from fetal_mri_segmentation_tpu_torch.ops import keras_adam
+    from fetal_mri_segmentation_tpu_torch.training.state import KerasAdam
+
+    kernel, takes = keras_adam.keras_adam, keras_adam.takes
+    routes = {"a1": (kernel, takes),
+              "foreach": (_foreach_keras_adam, takes),
+              "composite": (kernel, lambda p: False)}
+    out = {}
+    for kind, path, n_leaves, per_step in ADAM_MODELS:
+        torch.manual_seed(0)
+        model = build_model(Config.load(str(ROOT / path)), device="cuda")
+        base = [p.detach().clone() for p in model.parameters()]
+        del model
+        n = sum(p.numel() for p in base)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        grads = [[torch.randn(p.shape, device="cuda", generator=gen) * 0.01
+                  for p in base] for _ in range(ADAM_STEPS)]
+        leaves = {r: [nn.Parameter(p.clone()) for p in base] for r in routes}
+        opts = {r: KerasAdam(leaves[r], 5e-4) for r in routes}
+
+        def step(route):
+            keras_adam.keras_adam, keras_adam.takes = routes[route]
+            try:
+                opts[route].step()
+            finally:
+                keras_adam.keras_adam, keras_adam.takes = kernel, takes
+
+        kernel.launches = kernel.leaves = 0
+        for t in range(ADAM_STEPS):
+            for route in routes:
+                if t == 2:
+                    opts[route].set_learning_rate(2.5e-4)
+                for p, g in zip(leaves[route], grads[t]):
+                    p.grad = g
+                step(route)
+        torch.cuda.synchronize()
+        counted = (kernel.launches, kernel.leaves)
+        want = (ADAM_STEPS * per_step, ADAM_STEPS * n_leaves)
+        ref = opts["composite"].state
+        same = {r: all(torch.equal(a, c)
+                       and torch.equal(opts[r].state[a]["mu"], ref[c]["mu"])
+                       and torch.equal(opts[r].state[a]["nu"], ref[c]["nu"])
+                       for a, c in zip(leaves[r], leaves["composite"]))
+                for r in ("a1", "foreach")}
+        print(f"adam {kind}: {len(base)} leaves, {n} parameters, "
+              f"{ADAM_STEPS} steps (lr 5e-4, then 2.5e-4 from the third) "
+              f"against the eager update: p, m and v bit for bit with A1 "
+              f"{same['a1']}, with _foreach_ ops {same['foreach']}; A1 "
+              f"launches, leaves {counted} (want {want})", flush=True)
+        if len(base) != n_leaves or not same["a1"] or counted != want:
+            raise AssertionError(f"adam {kind}: {len(base)} leaves, A1 bit "
+                                 f"for bit {same['a1']}, counted {counted}")
+        bound = ADAM_BYTES * n / HBM_BYTES_PER_S * 1e3
+        row = {"leaves": n_leaves, "parameters": n, "bound_ms": bound,
+               "launches_per_step": per_step,
+               "foreach_bit_for_bit": same["foreach"]}
+        for route in routes:
+            for p, g in zip(leaves[route], grads[0]):
+                p.grad = g
+            host = []
+            for _ in range(30):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(route)
+                host.append(1e3 * (time.perf_counter() - t0))
+            events_ms = time_ms(torch, lambda: step(route), iters=20)
+            calls = 5
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    step(route)
+                torch.cuda.synchronize()
+            device = annotated = kernels = 0.0
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                # the optimizer's step is a record_function range, which
+                # the profiler also lays on the device from its first
+                # kernel to its last: not a kernel's time
+                if getattr(e, "is_user_annotation", False):
+                    annotated += e.self_device_time_total
+                else:
+                    device += e.self_device_time_total
+                    kernels += e.count
+            q1, _, q3 = statistics.quantiles(host, n=4)
+            row[route] = {"host_ms": statistics.median(host), "host_q1": q1,
+                          "host_q3": q3, "events_ms": events_ms,
+                          "device_ms": device / calls / 1e3,
+                          "kernels": kernels / calls,
+                          "annotation_ms": annotated / calls / 1e3}
+            r = row[route]
+            print(f"adam {kind} {route}: host {r['host_ms']:.4f} ms a step "
+                  f"(q1 {q1:.4f}, q3 {q3:.4f}), events {events_ms:.4f} ms, "
+                  f"device {r['device_ms']:.4f} ms in {r['kernels']:.1f} "
+                  f"kernels by the profiler (the step's device-side range "
+                  f"{r['annotation_ms']:.4f} ms, not counted), bound "
+                  f"{bound:.4f} ms ({ADAM_BYTES} B a parameter), "
+                  f"{100 * bound / r['device_ms']:.1f} % of it", flush=True)
+        out[kind] = row
+        del base, grads, leaves, opts
+        torch.cuda.empty_cache()
+    return out
+
+
 def wgmma_check(lib_path: Path) -> str:
     """Every compiled instance of the two conv kernels issues HGMMA (the
     SASS of wgmma.mma_async); a fall back to mma.sync fails here."""
@@ -1387,6 +1550,7 @@ def train_phase(torch, work: Path) -> dict:
     from fetal_mri_segmentation_tpu_torch.models import build_model
     from fetal_mri_segmentation_tpu_torch.ops import conv3x3 as conv_ops
     from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
+    from fetal_mri_segmentation_tpu_torch.ops.keras_adam import keras_adam
     from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
         get_training_and_validation_generators)
     from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
@@ -1409,8 +1573,9 @@ def train_phase(torch, work: Path) -> dict:
     config_off = dataclasses.replace(config, use_pallas_conv=False,
                                      use_pallas_dec0=False)
     weights = from_flax(init_flax_like(config, seed=0))
+    # A1: one launch a step for the U-Net's 30 leaves
     counters = (conv_ops.conv3x3, conv_ops.conv3x3_flat,
-                dec_ops.up_concat_conv3x3_kernel)
+                dec_ops.up_concat_conv3x3_kernel, keras_adam)
 
     def zero_counts():
         for fn in counters:
@@ -1438,7 +1603,8 @@ def train_phase(torch, work: Path) -> dict:
         metrics = step(state, x, y)
         torch.cuda.synchronize()
         step_launches = counts()
-        want = PER_FORWARD if name == "on" else dict.fromkeys(PER_FORWARD, 0)
+        want = {**(PER_FORWARD if name == "on"
+                   else dict.fromkeys(PER_FORWARD, 0)), "keras_adam": 1}
         print(f"train step {name}: launches {step_launches}", flush=True)
         if step_launches != want:
             raise AssertionError(f"one train step with the kernels {name} "
@@ -1543,6 +1709,7 @@ def train_phase(torch, work: Path) -> dict:
     # one forward per train and per validation step, in each epoch
     want = {name: n * loop_cfg.n_epochs * (n_t + n_v)
             for name, n in PER_FORWARD.items()}
+    want["keras_adam"] = loop_cfg.n_epochs * n_t
     print(f"train loop: launches {launches}", flush=True)
     if launches != want:
         raise AssertionError(f"train_model launched {launches}, not {want}")
@@ -2058,6 +2225,7 @@ def isensee_phase(torch, work: Path) -> dict:
     from fetal_mri_segmentation_tpu_torch.ops import dec0 as dec_ops
     from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
         instance_norm_act, instance_norm_act_backward)
+    from fetal_mri_segmentation_tpu_torch.ops.keras_adam import keras_adam
     from fetal_mri_segmentation_tpu_torch.pipeline.generator import (
         get_training_and_validation_generators)
     from fetal_mri_segmentation_tpu_torch.training.checkpoint import (
@@ -2223,7 +2391,7 @@ def isensee_phase(torch, work: Path) -> dict:
     y = torch.from_numpy(y_np).cuda()
     grads, losses = {}, {}
     config_32 = dataclasses.replace(config_off, compute_dtype="float32")
-    norm_launches = {}
+    norm_launches, adam_launches = {}, {}
     for name, cfg in (("on", config), ("off", config_off),
                       ("fp32", config_32)):
         cfg = dataclasses.replace(cfg, augment=False)
@@ -2241,6 +2409,7 @@ def isensee_phase(torch, work: Path) -> dict:
         if name == "fp32":
             layers._kernel_device = lambda t: False
         instance_norm_act.launches = instance_norm_act_backward.launches = 0
+        keras_adam.launches = keras_adam.leaves = 0
         try:
             metrics = counted(f"train step {name}", want,
                               lambda: step(state, x, y))
@@ -2250,6 +2419,9 @@ def isensee_phase(torch, work: Path) -> dict:
                                instance_norm_act_backward.launches)
         launches[f"train step {name}"]["instance_norm_act"] = (
             instance_norm_act.launches)
+        # A1: two launches a step for Isensee2017's 114 leaves
+        adam_launches[name] = (keras_adam.launches, keras_adam.leaves)
+        launches[f"train step {name}"]["keras_adam"] = keras_adam.launches
         torch.backends.cudnn.allow_tf32 = True
         losses[name] = float(metrics["loss"])
         grads[name] = {n: p.grad.float().clone()
@@ -2301,6 +2473,12 @@ def isensee_phase(torch, work: Path) -> dict:
     if norm_launches != want_norm:
         raise AssertionError(f"isensee train step norm launches "
                              f"{norm_launches}, not {want_norm}")
+    want_adam = dict.fromkeys(norm_launches, (2, 114))
+    print(f"isensee train step A1 launches, leaves: {adam_launches}",
+          flush=True)
+    if adam_launches != want_adam:
+        raise AssertionError(f"isensee train step A1 launches, leaves "
+                             f"{adam_launches}, not {want_adam}")
     if zero:
         raise AssertionError(f"zero gradient with the kernels on: {zero}")
     if not (margin <= 1 and worst_bias[1] <= GRAD_REL_TOL):
@@ -2367,9 +2545,14 @@ def isensee_phase(torch, work: Path) -> dict:
                                     + n_v * ISENSEE_PER_FORWARD[k])
             for k in ISENSEE_PER_TRAIN}
     t = time.perf_counter()
+    keras_adam.launches = 0
     state = counted("train_model", want, lambda: train_model(
         model, state, loop_cfg, tg, vg, n_t, n_v, seed=0, verbose=False))
     loop_s = time.perf_counter() - t
+    launches["train_model"]["keras_adam"] = keras_adam.launches
+    if keras_adam.launches != 2 * loop_cfg.n_epochs * n_t:
+        raise AssertionError(f"isensee train_model: {keras_adam.launches} "
+                             f"A1 launches, not 2 a train step")
     with open(loop_cfg.training_log) as f:
         rows = list(csv.DictReader(f))
     print("isensee train loop: " + "; ".join(
@@ -5001,6 +5184,9 @@ def main() -> None:
     norm["train"] = norm_train_phase(torch)
     seconds["norm_train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    adam = adam_phase(torch)
+    seconds["adam"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     swin = swin_phase(torch)
     swin["train"] = swin_train_phase(torch)
     seconds["swin"] = time.perf_counter() - t0
@@ -5071,6 +5257,13 @@ def main() -> None:
                         if "instance_norm_act" in counts},
                     "swin_launches": swin["launches"],
                     "swin_forward_ms": swin["forward_ms"], **norm})
+    kernels.append({"name": "keras_adam", "route": "cuda",
+                    "source": ADAM_SOURCE, "replaces": None,
+                    "train_launches": train_launches["keras_adam"],
+                    "isensee_launches": {
+                        path: counts["keras_adam"] for path, counts
+                        in isensee["launches"].items()
+                        if "keras_adam" in counts}, **adam})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,7 +12,8 @@ TMA tensor maps with ``cuTensorMapEncodeTiled``, which it looks up at run
 time with ``cudaGetDriverEntryPoint`` (so the build links nothing but the
 CUDA runtime), launches on the stream it is given and returns 0, the launch's
 ``cudaGetLastError()``, or an encode error; :func:`check_launch` raises on
-anything but 0.
+anything but 0. :func:`run` calls an entry that way for the ctypes-bound
+kernels (N1, A1).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -116,9 +119,12 @@ def library() -> ctypes.CDLL:
     # stream)
     lib.fetal_instance_norm_act_backward.argtypes = [_P] * 8 + [
         _SPECS, _F, _P]
+    # (leaves, table of rows (p, g, m, v, numel), alpha, scalars, stream)
+    lib.fetal_keras_adam.argtypes = [_I, _P, _P, _P, _P]
     lib.fetal_conv3x3_bf16.restype = lib.fetal_dec0_bf16.restype = _I
     lib.fetal_instance_norm_act.restype = _I
     lib.fetal_instance_norm_act_backward.restype = _I
+    lib.fetal_keras_adam.restype = _I
     return lib
 
 
@@ -137,6 +143,32 @@ def check_launch(name: str, err: int) -> None:
                            f"tensor map {index} with CUresult {result}")
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _enqueue(entry: str, op: str, args, device: int) -> int:
+    """The C ``entry`` on the current stream of ``device``, the current
+    device."""
+    fn = getattr(library(), entry)
+    args = (*args, torch._C._cuda_getCurrentRawStream(device))
+    if _profiler._is_profiler_enabled:
+        # the profiler links a kernel to the host op open at its launch; a
+        # launch from C outside any op would be linked to none, and no
+        # range around the call would count its device time
+        with _RecordFunctionFast(op):
+            return fn(*args)
+    return fn(*args)
+
+
+def run(entry: str, op: str, args, device: int) -> None:
+    """Call the C ``entry`` with ``args`` and the current stream of CUDA
+    ``device``, inside the host op ``op`` while a profiler runs; raise on
+    what it returns (:func:`check_launch`)."""
+    if device == torch.cuda.current_device():
+        err = _enqueue(entry, op, args, device)
+    else:
+        with torch.cuda.device(device):
+            err = _enqueue(entry, op, args, device)
+    check_launch(entry[len("fetal_"):], err)
 
 
 def cached(t: torch.Tensor, key, make):

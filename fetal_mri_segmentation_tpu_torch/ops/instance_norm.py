@@ -55,8 +55,6 @@ import functools
 import math
 
 import torch
-from torch._C._profiler import _RecordFunctionFast
-from torch.autograd import profiler as _profiler
 from torch.autograd.function import once_differentiable
 
 from fetal_mri_segmentation_tpu_torch.ops import cuda_lib
@@ -199,29 +197,6 @@ def _geometry(shape, dtype, device: int, scale_shape, scale_dtype,
     return geom, batch * plan.chunks * channels * 2
 
 
-def _enqueue(entry: str, op: str, args, device: int) -> int:
-    """The C ``entry`` on the current stream of ``device``, the current
-    device."""
-    fn = getattr(cuda_lib.library(), entry)
-    args = (*args, torch._C._cuda_getCurrentRawStream(device))
-    if _profiler._is_profiler_enabled:
-        # the profiler links a kernel to the host op open at its launch; a
-        # launch from C outside any op would be linked to none, and no
-        # range around the call would count its device time
-        with _RecordFunctionFast(op):
-            return fn(*args)
-    return fn(*args)
-
-
-def _run(entry: str, op: str, args, device: int) -> None:
-    if device == torch.cuda.current_device():
-        err = _enqueue(entry, op, args, device)
-    else:
-        with torch.cuda.device(device):
-            err = _enqueue(entry, op, args, device)
-    cuda_lib.check_launch(entry[len("fetal_"):], err)
-
-
 def _operand(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned, copied only where it is not
     (a view whose offset breaks the 16-byte loads)."""
@@ -248,10 +223,11 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     part = torch.empty(part_numel, dtype=torch.float32, device=x.device)
     moments = (torch.empty(2, geom[0], scale.shape[0], dtype=torch.float32,
                            device=x.device) if train else None)
-    _run("fetal_instance_norm_act", PROFILER_NAME,
-         (x.data_ptr(), y.data_ptr(), part.data_ptr(), scale.data_ptr(),
-          bias.data_ptr(), moments.data_ptr() if train else None, geom, eps,
-          negative_slope), device)
+    cuda_lib.run("fetal_instance_norm_act", PROFILER_NAME,
+                 (x.data_ptr(), y.data_ptr(), part.data_ptr(),
+                  scale.data_ptr(), bias.data_ptr(),
+                  moments.data_ptr() if train else None, geom, eps,
+                  negative_slope), device)
     return (y, x, moments) if train else y
 
 
@@ -272,11 +248,11 @@ def _launch_backward(dy: torch.Tensor, x: torch.Tensor,
     part = torch.empty(part_numel, dtype=torch.float32, device=x.device)
     dparams = (torch.empty(2, scale.shape[0], dtype=torch.float32,
                            device=x.device) if params else None)
-    _run("fetal_instance_norm_act_backward", BACKWARD_PROFILER_NAME,
-         (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), moments.data_ptr(),
-          part.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-          dparams.data_ptr() if params else None, geom, negative_slope),
-         device)
+    cuda_lib.run("fetal_instance_norm_act_backward", BACKWARD_PROFILER_NAME,
+                 (x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                  moments.data_ptr(), part.data_ptr(), scale.data_ptr(),
+                  bias.data_ptr(), dparams.data_ptr() if params else None,
+                  geom, negative_slope), device)
     return dx, dparams
 
 

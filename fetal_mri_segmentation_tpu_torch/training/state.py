@@ -13,9 +13,15 @@ does not compute. ``alpha`` and ``lr`` are float32 numbers, as the JAX
 package computes them on the device. An optional ``clip_norm`` applies
 optax's ``clip_by_global_norm`` to the gradients first. The learning rate
 is set at run time with :meth:`KerasAdam.set_learning_rate` (the epoch-level
-schedules). Parameters change in place under ``torch.no_grad()``, which
-bumps their version counters, so operands the kernels prepared from an old
-version are made again (``ops/cuda_lib.py::cached``).
+schedules). Parameters change in place and their version counters are
+bumped, so operands the kernels prepared from an old version are made
+again (``ops/cuda_lib.py::cached``).
+
+Leaves on a CUDA device take the multi-tensor kernel A1
+(``ops/keras_adam.py``: a launch for up to 80 leaves, bit for bit the eager
+update); a CUDA leaf that is not a contiguous fp32 tensor raises. Other
+leaves take the eager update of one leaf at a time
+(``ops/keras_adam.py::keras_adam_reference``).
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from fetal_mri_segmentation_tpu_torch.ops import keras_adam
 
 
 def clip_by_global_norm(grads: List[torch.Tensor],
@@ -57,6 +65,8 @@ class KerasAdam(torch.optim.Optimizer):
                  clip_norm: Optional[float] = None):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps))
         self.clip_norm = clip_norm
+        # the kernel's launch table of each param group's CUDA leaves
+        self._tables = {}
 
     @property
     def learning_rate(self) -> float:
@@ -78,25 +88,35 @@ class KerasAdam(torch.optim.Optimizer):
         if self.clip_norm:
             grads = clip_by_global_norm(grads, self.clip_norm)
         grad_of = dict(zip(map(id, params), grads))
-        for group in self.param_groups:
+        for index, group in enumerate(self.param_groups):
             b1, b2 = group["betas"]
-            neg_lr = -float(np.float32(group["lr"]))
+            card = []
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = grad_of[id(p)]
                 state = self.state[p]
                 if not state:
                     state["count"] = 0
                     state["mu"] = torch.zeros_like(p)
                     state["nu"] = torch.zeros_like(p)
                 state["count"] += 1
-                mu, nu = state["mu"], state["nu"]
-                mu.mul_(b1).add_(g * (1 - b1))
-                nu.mul_(b2).add_(g.mul(1 - b2).mul_(g))
-                alpha = _step_size(state["count"], b1, b2)
-                p.add_(mu.mul(alpha).div_(nu.sqrt().add_(group["eps"]))
-                       .mul_(neg_lr))
+                if keras_adam.takes(p):
+                    card.append(p)
+                    continue
+                keras_adam.keras_adam_reference(
+                    p, grad_of[id(p)], state["mu"], state["nu"],
+                    _step_size(state["count"], b1, b2), b1, b2,
+                    group["eps"], group["lr"])
+            if card:
+                states = [self.state[p] for p in card]
+                table = self._tables[index] = keras_adam.leaf_table(
+                    self._tables.get(index), card, states)
+                counts = [s["count"] for s in states]
+                alpha = {c: _step_size(c, b1, b2) for c in set(counts)}
+                keras_adam.keras_adam(
+                    table, [grad_of[id(p)] for p in card],
+                    [alpha[c] for c in counts], b1, b2, group["eps"],
+                    group["lr"])
         return loss
 
 

@@ -119,4 +119,4 @@ def test_library_name_follows_the_sources():
     assert path.parent == cuda_lib.BUILD_DIR
     assert path == cuda_lib.library_path()
     assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {
-        "conv3x3.cu", "dec0.cu", "instance_norm.cu"}
+        "conv3x3.cu", "dec0.cu", "instance_norm.cu", "keras_adam.cu"}
