@@ -206,11 +206,15 @@ launches), both timed, each held to an fp32 model on the composite (the
 fused no further from it than twice the composite, or ``PROB_TOL``). The
 same phase holds the kernel to its twin at Swin UNETR's settings (eps
 1e-5, LeakyReLU 0.01, no affine) at every norm shape of its serving
-forward (``SWIN_NORM_SHAPES``, activations "leaky_relu" and "none"). The
-norm training phase runs the fused norm's autograd Function (two forward
-launches, three backward, two without affine) at every norm shape of
-Isensee2017's train step and of Swin UNETR's at its batch of 4 without
-affine (``NORM_TRAIN_SHAPES``): dx, dscale and dbias against autograd
+forward (``SWIN_NORM_SHAPES``, activations "leaky_relu" and "none"), and
+at MedNeXt's (eps 1e-5, affine, activation "none") at every norm shape of
+the mednext preset's train step (``MEDNEXT_NORM_SHAPES``: batch 2, 128^3 x
+32 down to 8^3 x 512, and the up blocks' odd extents 127^3 x 64 to 15^3 x
+512). The norm training phase runs the fused norm's autograd Function
+(two forward launches, three backward, two without affine) at every norm
+shape of Isensee2017's train step, of Swin UNETR's at its batch of 4
+without affine and of MedNeXt's (``NORM_TRAIN_SHAPES``), and sums each
+step's 27 and 62 norms: dx, dscale and dbias against autograd
 through the fp32 composite within ``NORM_GRAD_REL_TOL`` /
 ``NORM_GRAD_ABS_TOL`` and ``NORM_PARAM_TOL``, the launches counted, and the
 CUDA-event ms of forward plus backward against the bf16 composite's and
@@ -222,7 +226,17 @@ reference on the composite. The swin phase after it runs one batch-4
 in the same way, with ``SWIN_NORM_LAUNCHES`` (52) launches and
 ``SWIN_ATTN_CALLS`` SDPA attention calls, and one train step of it,
 ``SWIN_TRAIN_NORM_LAUNCHES`` fused norm launches (forward, backward)
-against none with the norms on the composite. The isensee phase counts
+against none with the norms on the composite. The mednext phase after
+it runs the mednext preset (MedNeXt-L, kernel 5) at its published widths,
+from the port's seeded init with each norm's scale and bias drawn:
+one 128^3 forward against the plain fp32 reference ``reference/mednext.py``
+on the card within ``MEDNEXT_LOGIT_TOL`` of max |logit| with
+``MEDNEXT_NORM_LAUNCHES`` norm launches, one train step at batch 2
+(``MEDNEXT_TRAIN_NORM_LAUNCHES`` norm launches, ``MEDNEXT_ADAM_LAUNCHES``
+A1 launches, peak memory, device ms, the step's longest kernels), and
+the kernels that run its depthwise convs forward and backward; alone:
+``python3 -c "import torch, chip_smoke; chip_smoke.mednext_phase(torch)"``.
+The isensee phase counts
 the fused norm's launches of
 its serving predictors (``NORM_LAUNCHES`` a forward: 216 a
 sliding-window case), and the ``kernels`` line carries an
@@ -231,8 +245,9 @@ sliding-window case), and the ``kernels`` line carries an
 
 The adam phase holds A1, the multi-tensor Keras Adam
 (``ops/keras_adam.py``), to the eager update of one leaf at a time at the
-leaf sets of the three models' train steps (``ADAM_MODELS``: Isensee2017's
-114 leaves, the U-Net's 30, Swin UNETR's 151): ``ADAM_STEPS`` steps from
+leaf sets of the four models' train steps (``ADAM_MODELS``: Isensee2017's
+114 leaves, the U-Net's 30, Swin UNETR's 151, MedNeXt-L's 516 in 7
+launches): ``ADAM_STEPS`` steps from
 the same weights and gradients with a learning-rate change after two, p,
 m and v bit for bit, the launches (one for up to 80 leaves) and leaves
 counted. Then it times three routes of the same update: A1, the same
@@ -338,6 +353,21 @@ SWIN_NORM_SHAPES = [(f"swin {n}^3 C{c} b{b}", (b, n, n, n), c)
                         (96, 48), (48, 48), (24, 96), (12, 192), (6, 384),
                         (3, 768))] + [("swin 48^3 C96 b4", (4, 48, 48, 48),
                                        96)]
+# MedNeXt's GroupNorm(C, C) (the mednext preset: MedNeXt-L, kernel 5, 32
+# base channels, batch 2 of 128^3 patches): affine InstanceNorm at eps
+# 1e-5 with activation "none", after each block's depthwise conv. (label,
+# (batch, D, H, W), channels, norms a forward) of every norm shape: the
+# blocks of levels 0-3 and the bottleneck (encoder and decoder), the down
+# blocks' at half their level's extent, and the up blocks' at the odd
+# extent 2n - 1 of their transposed conv (127^3 x 64 down to 15^3 x 512)
+MEDNEXT_NORM_EPS = 1e-5
+MEDNEXT_NORM_SHAPES = [
+    (f"mednext {n}^3 C{c} b2", (2, n, n, n), c, count)
+    for n, c, count in ((128, 32, 6), (64, 64, 8), (32, 128, 16),
+                        (16, 256, 16), (8, 512, 8),
+                        (64, 32, 1), (32, 64, 1), (16, 128, 1), (8, 256, 1),
+                        (127, 64, 1), (63, 128, 1), (31, 256, 1),
+                        (15, 512, 1))]
 # The training Function's gradients against autograd through the fp32
 # composite (an fp32 norm on the same bf16 x, scale and bias), element by
 # element: |dx - ref| <= NORM_GRAD_REL_TOL * |ref| + NORM_GRAD_ABS_TOL *
@@ -356,15 +386,19 @@ NORM_GRAD_REL_TOL, NORM_GRAD_ABS_TOL, NORM_PARAM_TOL = 2 ** -7, 2 ** -10, 1e-3
 # (label, (batch, D, H, W), channels, activation, eps, slope, affine,
 # norms a train step): Isensee2017's norms in a train step (batch 6 of
 # 64^3 patches, 16 base filters: six at each of levels 0-3, three at level
-# 4) and Swin UNETR's (``SWIN_NORM_SHAPES`` at the train step's batch of
-# 4, no affine, both activations its blocks use; 96^3 x 48 down to 3^3 x
-# 768, whose 768 channels a backward block covers in two row groups)
+# 4), Swin UNETR's (``SWIN_NORM_SHAPES`` at the train step's batch of 4,
+# no affine, both activations its blocks use; 96^3 x 48 down to 3^3 x
+# 768, whose 768 channels a backward block covers in two row groups; not
+# counted in a step) and MedNeXt's (``MEDNEXT_NORM_SHAPES``, its train
+# step's batch of 2)
 NORM_TRAIN_SHAPES = [
     (f"isensee train L{lv} b6", (6, 64 >> lv, 64 >> lv, 64 >> lv), 16 << lv,
      "leaky_relu", 1e-3, 0.3, True, 6 if lv < 4 else 3) for lv in range(5)
 ] + [(f"{label} {act}", shape, c, act, SWIN_NORM_EPS, SWIN_NORM_SLOPE,
       False, 0) for label, shape, c in SWIN_NORM_SHAPES if shape[0] == 4
-     for act in ("leaky_relu", "none")]
+     for act in ("leaky_relu", "none")] + [
+    (label, shape, c, "none", MEDNEXT_NORM_EPS, 0.0, True, count)
+    for label, shape, c, count in MEDNEXT_NORM_SHAPES]
 NORM_HOST_CALLS = 300
 # the fused norm's launches a serving forward of Isensee2017: two for each
 # of its 27 norms (four forwards, 216 launches, a sliding-window case)
@@ -381,6 +415,18 @@ SWIN_NORM_LAUNCHES, SWIN_ATTN_CALLS = 52, 8
 # 26 norms (no affine: no parameter gradient, no third backward launch)
 SWIN_TRAIN_NORM_LAUNCHES = (52, 52)
 SWIN_CONFIG = "fetal_mri_segmentation_tpu_torch/configs/fetal_swin_unetr.json"
+MEDNEXT_CONFIG = "fetal_mri_segmentation_tpu_torch/configs/fetal_mednext.json"
+# the mednext preset (L, kernel 5): two forward launches for each of its 62
+# norms (54 blocks, 4 down and 4 up blocks), three backward (affine: the
+# parameters' gradient too)
+MEDNEXT_NORM_LAUNCHES = 124
+MEDNEXT_TRAIN_NORM_LAUNCHES = (124, 186)
+# its 516 leaves in A1 launches of up to 80
+MEDNEXT_ADAM_LAUNCHES = 7
+# its bf16 forward of one 128^3 patch against the fp32 reference, as a
+# share of max|logit|: every depthwise, 1^3 conv and GELU operand rounded
+# to 8 bits of mantissa through 62 blocks
+MEDNEXT_LOGIT_TOL = 0.05
 
 B = 8  # patches per forward: the entry point's --patch-batch-size
 # (entry point, layer, batch, D, H, W, C_in, C_out): every kernel conv of
@@ -590,7 +636,8 @@ ADAM_SOURCE = "fetal_mri_segmentation_tpu_torch/csrc/keras_adam.cu"
 # the leaf sets A1 is held to: model, config, leaves, launches a step
 ADAM_MODELS = (("isensee", "configs/fetal_isensee.json", 114, 2),
                ("unet", "configs/fetal_unet.json", 30, 1),
-               ("swin_unetr", SWIN_CONFIG, 151, 2))
+               ("swin_unetr", SWIN_CONFIG, 151, 2),
+               ("mednext", MEDNEXT_CONFIG, 516, MEDNEXT_ADAM_LAUNCHES))
 ADAM_STEPS = 5
 # bytes a parameter of one update: p, g, m and v read; p, m and v written
 ADAM_BYTES = 28
@@ -874,6 +921,9 @@ def norm_phase(torch) -> dict:
             rows.append(_norm_case(
                 torch, gen, f"{label} {act}", shape, c, c, act,
                 eps=SWIN_NORM_EPS, slope=SWIN_NORM_SLOPE, affine=False))
+    for label, shape, c, _ in MEDNEXT_NORM_SHAPES:
+        rows.append(_norm_case(torch, gen, f"{label} none", shape, c, c,
+                               "none", eps=MEDNEXT_NORM_EPS))
 
     # host cost of one norm call, on Isensee's level 4 (4^3 voxels x 256
     # channels a patch: a few microseconds of device work)
@@ -1070,17 +1120,27 @@ def _norm_kernel_ms(torch, fn, calls: int = 5):
 
 def norm_train_phase(torch) -> dict:
     """The fused norm's training Function on the card at every norm shape
-    of Isensee2017's train step and at Swin UNETR's largest norm (see
-    ``NORM_TRAIN_SHAPES``); returns each shape's times and a step's sums."""
+    of Isensee2017's, Swin UNETR's and MedNeXt's train steps (see
+    ``NORM_TRAIN_SHAPES``); returns each shape's times and the sums of an
+    Isensee2017 step's and a MedNeXt step's norms."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = [_norm_train_case(torch, gen, *case) for case in NORM_TRAIN_SHAPES]
-    step = {key: sum(r[key] * r["per_step"] for r in rows)
-            for key in ("ms", "composite_ms", "bound_ms", "two_pass_ms")}
-    print(f"norm train isensee step's 27 norms, forward + backward: fused "
-          f"{step['ms']:.6g} ms, composite {step['composite_ms']:.6g} ms, "
-          f"bound {step['bound_ms']:.6g} ms (two-pass traffic "
-          f"{step['two_pass_ms']:.6g} ms)", flush=True)
-    return {"shapes": rows, "isensee_step": step}
+    out = {"shapes": rows}
+    for kind, norms in (("isensee", 27), ("mednext", 62)):
+        mine = [r for r in rows if r["label"].startswith(kind)]
+        counted = sum(r["per_step"] for r in mine)
+        if counted != norms:
+            raise AssertionError(f"norm train {kind}: {counted} norms a "
+                                 f"step, not {norms}")
+        step = {key: sum(r[key] * r["per_step"] for r in mine)
+                for key in ("ms", "composite_ms", "bound_ms", "two_pass_ms")}
+        print(f"norm train {kind} step's {norms} norms, forward + backward: "
+              f"fused {step['ms']:.6g} ms, composite "
+              f"{step['composite_ms']:.6g} ms, bound {step['bound_ms']:.6g} "
+              f"ms (two-pass traffic {step['two_pass_ms']:.6g} ms)",
+              flush=True)
+        out[f"{kind}_step"] = step
+    return out
 
 
 def swin_phase(torch) -> dict:
@@ -1236,6 +1296,174 @@ def swin_train_phase(torch) -> dict:
                            "composite": plain["peak_bytes"]},
             "grad_gap": {"median": statistics.median(gaps.values()),
                          "worst": gaps[worst]}}
+
+
+def _kernels_of(torch, run, top: int = 12):
+    """The device kernels of ``run()`` under the profiler: [(name, count,
+    ms)] by time, the ``top`` longest (record_function ranges, which the
+    profiler also lays on the device, left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=lambda r: -r[2])[:top]
+
+
+def mednext_phase(torch) -> dict:
+    """The mednext preset (``MEDNEXT_CONFIG``: MedNeXt-L, kernel 5, 32
+    base channels, bf16) at its published widths:
+
+    - one serving forward of a 128^3 patch, with the port's seeded init
+      (``models/mednext.py::init_parameters`` at seed 0) and each norm's
+      scale and bias drawn away from ones and zeros, against the plain
+      fp32 reference ``reference/mednext.py`` on the card (TF32 off),
+      within ``MEDNEXT_LOGIT_TOL`` of max|logit|, with
+      ``MEDNEXT_NORM_LAUNCHES`` fused norm launches;
+    - one train step at the preset's batch (2 128^3 patches, its
+      augmentation): ``MEDNEXT_TRAIN_NORM_LAUNCHES`` norm launches and
+      ``MEDNEXT_ADAM_LAUNCHES`` A1 launches, loss and gradients finite, its
+      peak memory and the device ms of two more steps;
+    - the kernels that ran the depthwise convs (a level-0 block's, the
+      first down block's and the last up block's, at batch 2), forward and
+      backward, with their device ms, and the step's longest kernels."""
+    from fetal_mri_segmentation_tpu_torch.config import Config
+    from fetal_mri_segmentation_tpu_torch.models import build_model, mednext
+    from fetal_mri_segmentation_tpu_torch.ops import keras_adam as adam_ops
+    from fetal_mri_segmentation_tpu_torch.ops.instance_norm import (
+        instance_norm_act, instance_norm_act_backward)
+    from fetal_mri_segmentation_tpu_torch.training.state import (
+        create_train_state)
+    from fetal_mri_segmentation_tpu_torch.training.train_step import (
+        make_train_step)
+    from fetal_mri_segmentation_tpu_torch.models.layers import InstanceNorm
+    from reference import mednext as ref
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = Config.load(str(ROOT / MEDNEXT_CONFIG))
+    rcfg = {"n_base_filters": config.n_base_filters,
+            "n_labels": config.n_labels,
+            "mednext_size": config.mednext_size,
+            "mednext_kernel": config.mednext_kernel}
+    model = build_model(config, "cuda").eval()
+    mednext.init_parameters(model, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for norm in model.modules():
+            if isinstance(norm, InstanceNorm):
+                c = norm.scale.shape[0]
+                norm.scale.copy_(1 + 0.25 * torch.randn(
+                    c, device="cuda", generator=gen))
+                norm.bias.copy_(0.25 * torch.randn(c, device="cuda",
+                                                   generator=gen))
+    weights = {k: v.detach().float().clone()
+               for k, v in model.state_dict().items()}
+    x = torch.randn(1, 1, *config.patch_shape, device="cuda", generator=gen)
+    with torch.inference_mode():
+        instance_norm_act.launches = 0
+        got = model(x.permute(0, 2, 3, 4, 1), logits=True).permute(
+            0, 4, 1, 2, 3).float()
+        torch.cuda.synchronize()
+        launches = instance_norm_act.launches
+        forward_ms = time_ms(torch, lambda: model(x.permute(0, 2, 3, 4, 1)),
+                             3)
+        want = ref.forward(weights, x, rcfg)
+    scale = want.abs().max().item()
+    gap = (got - want).abs().max().item() / scale
+    print(f"mednext forward 1 x {tuple(config.patch_shape)}, size "
+          f"{config.mednext_size} kernel {config.mednext_kernel}: "
+          f"max|logit - reference| / max|reference| {gap:.6g} <= "
+          f"{MEDNEXT_LOGIT_TOL} (max|reference| {scale:.6g}); norm launches "
+          f"{launches}; device ms {forward_ms:.6g}", flush=True)
+    if not (gap <= MEDNEXT_LOGIT_TOL and launches == MEDNEXT_NORM_LAUNCHES
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"mednext forward: {gap} > {MEDNEXT_LOGIT_TOL}, "
+                             f"non-finite, or launches {launches} != "
+                             f"{MEDNEXT_NORM_LAUNCHES}")
+    del got, want
+
+    x_np, y_np = train_batch(config)
+    xb = torch.from_numpy(x_np).cuda()
+    yb = torch.from_numpy(y_np).cuda()
+    model.train()
+    state = create_train_state(model, config)
+    step = make_train_step(model, config, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    instance_norm_act.launches = instance_norm_act_backward.launches = 0
+    adam_ops.keras_adam.launches = 0
+    loss = float(step(state, xb, yb)["loss"])
+    train_launches = (instance_norm_act.launches,
+                      instance_norm_act_backward.launches)
+    a1 = adam_ops.keras_adam.launches
+    finite = math.isfinite(loss) and all(
+        bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = time_ms(torch, lambda: step(state, xb, yb), 2)
+    rows = _kernels_of(torch, lambda: step(state, xb, yb), 15)
+    print(f"mednext train step batch {config.batch_size} of "
+          f"{tuple(config.patch_shape)}: loss {loss:.6g}; norm launches "
+          f"(forward, backward) {train_launches}; A1 launches {a1}; device "
+          f"ms a step {step_ms:.6g}; peak bytes {peak}", flush=True)
+    for name, n, ms in rows:
+        print(f"mednext step kernel {ms:.4f} ms x{n}: {name[:110]}",
+              flush=True)
+    if not (finite and train_launches == MEDNEXT_TRAIN_NORM_LAUNCHES
+            and a1 == MEDNEXT_ADAM_LAUNCHES):
+        raise AssertionError(
+            f"mednext train step: non-finite, norm launches {train_launches}"
+            f" != {MEDNEXT_TRAIN_NORM_LAUNCHES} or A1 launches {a1} != "
+            f"{MEDNEXT_ADAM_LAUNCHES}")
+    del model, state, step, xb, yb
+    torch.cuda.empty_cache()
+
+    routes = {}
+    for label, module in (
+            ("enc_block_0 (stride 1)", mednext.DepthwiseConv3d(
+                32, 5, device="cuda")),
+            ("down_0 (stride 2)", mednext.DepthwiseConv3d(
+                32, 5, 2, device="cuda")),
+            ("up_0 (transposed)", mednext.DepthwiseConv3d(
+                64, 5, 2, True, device="cuda"))):
+        n = 64 if "up" in label else 128
+        c = module.weight.shape[0]
+        xd = torch.randn(2, n, n, n, c, device="cuda",
+                         dtype=torch.bfloat16).requires_grad_(True)
+        with torch.no_grad():
+            module.weight.normal_()
+            module.bias.normal_()
+            yd = module(xd)
+        dy = torch.randn_like(yd)
+
+        def forward(m=module, t=xd):
+            with torch.no_grad():
+                m(t)
+
+        def backward(m=module, t=xd, g=dy):
+            torch.autograd.grad(m(t), [t, m.weight, m.bias], g)
+
+        fwd = _kernels_of(torch, forward, 4)
+        both = _kernels_of(torch, backward, 8)
+        routes[label] = {"forward": fwd, "forward_backward": both}
+        print(f"mednext depthwise {label} {tuple(xd.shape)} bf16: forward "
+              + "; ".join(f"{k[:90]} x{m} {ms:.4f} ms" for k, m, ms in fwd)
+              + " | forward + backward "
+              + "; ".join(f"{k[:90]} x{m} {ms:.4f} ms" for k, m, ms in both),
+              flush=True)
+        del xd, yd, dy
+    return {"logit_gap": gap, "launches": launches,
+            "train_launches": train_launches, "adam_launches": a1,
+            "forward_ms": forward_ms, "step_ms": step_ms, "peak_bytes": peak,
+            "routes": routes}
 
 
 def _foreach_keras_adam(table, grads, alphas, b1, b2, eps, lr):
@@ -5190,6 +5418,10 @@ def main() -> None:
     swin = swin_phase(torch)
     swin["train"] = swin_train_phase(torch)
     seconds["swin"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mednext_run = mednext_phase(torch)
+    seconds["mednext"] = time.perf_counter() - t0
     results = {}
     for name, phase in (("slice", slice_phase), ("train", train_phase),
                         ("parity", lambda t, w: parity_phase(
@@ -5256,14 +5488,19 @@ def main() -> None:
                         in isensee["launches"].items()
                         if "instance_norm_act" in counts},
                     "swin_launches": swin["launches"],
-                    "swin_forward_ms": swin["forward_ms"], **norm})
+                    "swin_forward_ms": swin["forward_ms"],
+                    "mednext_launches": {
+                        "forward": mednext_run["launches"],
+                        "train": mednext_run["train_launches"]}, **norm})
     kernels.append({"name": "keras_adam", "route": "cuda",
                     "source": ADAM_SOURCE, "replaces": None,
                     "train_launches": train_launches["keras_adam"],
                     "isensee_launches": {
                         path: counts["keras_adam"] for path, counts
                         in isensee["launches"].items()
-                        if "keras_adam" in counts}, **adam})
+                        if "keras_adam" in counts},
+                    "mednext_launches": mednext_run["adam_launches"],
+                    **adam})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

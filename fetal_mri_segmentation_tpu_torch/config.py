@@ -10,6 +10,13 @@ decoder kernel (``ops/dec0.py``). Both keep their names and their default
 of false. :func:`check_supported` refuses early what the JAX package's
 models refuse. The port's functions read a config's attributes
 only, so any object with these attributes (the JAX ``Config`` too) works.
+
+The port's own families add fields of their own at the end
+(``PORT_ONLY``: MedNeXt's size and kernel), which the JAX ``Config`` does
+not have; the port reads them only for ``model_name="mednext"``, and
+:meth:`Config.to_dict` (so ``save``) writes them for that family only, so
+that any other family's saved config loads in the JAX ``Config`` as
+before.
 """
 
 from __future__ import annotations
@@ -19,7 +26,10 @@ import json
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
-__all__ = ["Config", "check_interop", "check_supported"]
+__all__ = ["Config", "PORT_ONLY", "check_interop", "check_supported"]
+
+# the fields of the port's Config that the JAX package's does not have
+PORT_ONLY = ("mednext_size", "mednext_kernel")
 
 
 def _tup(x) -> Optional[Tuple[int, ...]]:
@@ -41,8 +51,8 @@ class Config:
     truth_channel: int = 1  # the truth "modality" slot (metadata only)
 
     # --- model --------------------------------------------------------------
-    model_name: str = "unet"  # "unet" | "isensee" | "swin_unetr" (the port
-                              # only: models/swin_unetr.py)
+    model_name: str = "unet"  # "unet" | "isensee" | "swin_unetr" |
+        # "mednext" (the port only: models/swin_unetr.py, models/mednext.py)
     depth: Optional[int] = None  # None = model default (unet: 4, isensee: 5);
                                  # an explicit value is always honored as-is
     n_base_filters: int = 32
@@ -105,6 +115,10 @@ class Config:
     num_devices: Optional[int] = None  # None = all visible devices (DP mesh)
     spatial_devices: int = 1  # >1: volume depth sharded over devices
 
+    # --- the port only (not in the JAX package's Config) --------------------
+    mednext_size: str = "L"  # MedNeXt's published table: "S" | "B" | "M" | "L"
+    mednext_kernel: int = 5  # MedNeXt's depthwise kernel: 3 | 5
+
     # -------------------------------------------------------------------------
     def __post_init__(self):
         if self.depth is None:
@@ -132,9 +146,10 @@ class Config:
             raise ValueError(
                 f"device_case_cache={self.device_case_cache!r} — must be "
                 "'auto', 'on' or 'off'")
-        if self.model_name not in ("unet", "isensee", "swin_unetr"):
+        if self.model_name not in ("unet", "isensee", "swin_unetr",
+                                   "mednext"):
             raise ValueError(f"model_name={self.model_name!r} — must be "
-                             "'unet', 'isensee' or 'swin_unetr'")
+                             "'unet', 'isensee', 'swin_unetr' or 'mednext'")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r} — must "
                              "be 'float32' or 'bfloat16'")
@@ -184,6 +199,9 @@ class Config:
     # --- JSON round-trip ----------------------------------------------------
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
+        if self.model_name != "mednext":
+            for k in PORT_ONLY:
+                del d[k]
         d["nb_channels"] = self.nb_channels
         d["input_shape"] = list(self.input_shape)
         return d
@@ -224,7 +242,8 @@ class Config:
 def check_supported(config) -> None:
     """Raise, before a model or a dataset is built, for a configuration
     whose model the JAX package refuses, with its message, and for what
-    the port's ``swin_unetr`` family does not take (:func:`_check_swin`).
+    the port's ``swin_unetr`` and ``mednext`` families do not take
+    (:func:`_check_swin`, :func:`_check_mednext`).
 
     Every setting of the JAX ``Config`` is ported. ``fold_level0``: "auto",
     None and "off" run unfolded in the port ("auto" folds on a TPU only,
@@ -237,6 +256,8 @@ def check_supported(config) -> None:
     ``parallel/spatial.py``) pass."""
     if config.model_name == "swin_unetr":
         _check_swin(config)
+    if config.model_name == "mednext":
+        _check_mednext(config)
     if config.model_name == "unet":
         from fetal_mri_segmentation_tpu_torch.models.layers import (
             check_unet_fold)
@@ -281,12 +302,48 @@ def _check_swin(config) -> None:
             raise ValueError(message)
 
 
+def _check_mednext(config) -> None:
+    """What ``MedNeXt`` (``models/mednext.py``) does not take: the Hopper
+    kernel switches (it has no dense 3^3 conv), an explicit fold, a
+    depth-sharded mesh, a size or kernel the public code does not build,
+    and a patch side not divisible by 16. On a CUDA device ``build_model``
+    also refuses a ``n_base_filters`` that is not a multiple of 8; the flax
+    and Keras interop refuse it (:func:`check_interop`), and so does
+    ``utils/export.py::export_predictor`` (``predict --export``)."""
+    shape = config.patch_shape
+    problems = [
+        (config.use_pallas_conv or config.use_pallas_dec0,
+         "use_pallas_conv / use_pallas_dec0 select the Hopper conv kernels, "
+         "which take the U-Net families' 3^3 conv blocks; mednext has none "
+         "(its convs run on PyTorch's ops): set both false"),
+        (config.fold_level0 not in (None, "auto", "off"),
+         f"fold_level0={config.fold_level0!r}: mednext has no folded form: "
+         "use 'auto' or 'off'"),
+        (config.spatial_devices > 1,
+         f"spatial_devices={config.spatial_devices}: mednext runs whole "
+         "patches on one device (no depth-sharded form): use 1"),
+        (config.mednext_size not in ("S", "B", "M", "L"),
+         f"mednext_size={config.mednext_size!r}: the public sizes are 'S', "
+         "'B', 'M' and 'L'"),
+        (config.mednext_kernel not in (3, 5),
+         f"mednext_kernel={config.mednext_kernel!r}: the public kernels are "
+         "3 and 5"),
+        (shape is not None and any(s % 16 for s in shape),
+         f"patch_shape={shape}: mednext needs each side divisible by 16 "
+         "(four down blocks halve it)"),
+    ]
+    for bad, message in problems:
+        if bad:
+            raise ValueError(message)
+
+
 def check_interop(model_name: str) -> None:
     """Raise for a family with no flax or Keras counterpart: the JAX
     package's parameter layout (``utils/params.py``) and the Keras import
     and export (``utils/keras_*.py``) cover ``unet`` and ``isensee``."""
-    if model_name == "swin_unetr":
+    if model_name in ("swin_unetr", "mednext"):
         raise ValueError(
-            "swin_unetr has no flax or Keras counterpart: the JAX package's "
-            "parameter layout and the Keras import and export cover 'unet' "
-            "and 'isensee' only; save and load the port's own checkpoint")
+            f"{model_name} has no flax or Keras counterpart: the JAX "
+            "package's parameter layout and the Keras import and export "
+            "cover 'unet' and 'isensee' only; save and load the port's own "
+            "checkpoint")

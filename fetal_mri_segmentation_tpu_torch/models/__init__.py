@@ -1,5 +1,6 @@
-"""Model families and factory of the port: ``UNet3D``, ``Isensee2017`` and
-``SwinUNETR`` (the port only; the JAX package has no such model)."""
+"""Model families and factory of the port: ``UNet3D``, ``Isensee2017``,
+``SwinUNETR`` and ``MedNeXt`` (the last two the port's only; the JAX
+package has no such models)."""
 
 from __future__ import annotations
 
@@ -7,18 +8,19 @@ import torch
 
 from fetal_mri_segmentation_tpu_torch.config import check_supported
 from fetal_mri_segmentation_tpu_torch.models.isensee2017 import Isensee2017
+from fetal_mri_segmentation_tpu_torch.models.mednext import MedNeXt
 from fetal_mri_segmentation_tpu_torch.models.swin_unetr import SwinUNETR
 from fetal_mri_segmentation_tpu_torch.models.unet3d import UNet3D
 from fetal_mri_segmentation_tpu_torch.utils.device import resolve_device
 
-__all__ = ["Isensee2017", "SwinUNETR", "UNet3D", "build_model"]
+__all__ = ["Isensee2017", "MedNeXt", "SwinUNETR", "UNet3D", "build_model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_model(config, device="cuda", bn_group=None):
-    """The configured model (``UNet3D``, ``Isensee2017`` or ``SwinUNETR``,
-    by ``config.model_name``) on ``device``, in eval mode.
+    """The configured model (``UNet3D``, ``Isensee2017``, ``SwinUNETR`` or
+    ``MedNeXt``, by ``config.model_name``) on ``device``, in eval mode.
 
     The card by default: on a machine without CUDA the default raises
     (``utils/device.py::resolve_device``); pass ``device="cpu"`` for the
@@ -37,7 +39,12 @@ def build_model(config, device="cuda", bn_group=None):
     ``SwinUNETR``: ``n_base_filters`` is MONAI's ``feature_size``, and its
     shift masks are made for ``patch_shape``. On a CUDA device its feature
     size must be a multiple of 24: the fused InstanceNorm kernel that its
-    residual blocks' norms run takes channel counts in multiples of 8."""
+    residual blocks' norms run takes channel counts in multiples of 8.
+
+    ``MedNeXt``: ``n_base_filters`` is its base width (32 in every public
+    size), ``mednext_size`` and ``mednext_kernel`` pick the public table
+    and the depthwise kernel. On a CUDA device the base width must be a
+    multiple of 8, for the same fused norm."""
     check_supported(config)
     dtype = _DTYPES[config.compute_dtype]
     if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
@@ -59,6 +66,19 @@ def build_model(config, device="cuda", bn_group=None):
             activation_name=config.activation_name, dtype=dtype,
             device=resolve_device(device),
             patch_shape=config.patch_shape).eval()
+    if config.model_name == "mednext":
+        if (torch.device(device).type == "cuda"
+                and config.n_base_filters % 8):
+            raise ValueError(
+                f"n_base_filters={config.n_base_filters}: on a CUDA device "
+                "MedNeXt's base width must be a multiple of 8 (the fused "
+                "InstanceNorm kernel's channel step)")
+        return MedNeXt(
+            in_channels=config.nb_channels, n_labels=config.n_labels,
+            n_base_filters=config.n_base_filters, size=config.mednext_size,
+            kernel=config.mednext_kernel,
+            activation_name=config.activation_name, dtype=dtype,
+            device=resolve_device(device)).eval()
     common = dict(in_channels=config.nb_channels, n_labels=config.n_labels,
                   depth=config.depth, n_base_filters=config.n_base_filters,
                   activation_name=config.activation_name, dtype=dtype,

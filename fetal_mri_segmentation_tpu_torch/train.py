@@ -66,7 +66,7 @@ from fetal_mri_segmentation_tpu_torch.config import Config, check_supported
 from fetal_mri_segmentation_tpu_torch.data.build import (
     dataset_bytes, open_data_file, write_data_to_file)
 from fetal_mri_segmentation_tpu_torch.models import build_model
-from fetal_mri_segmentation_tpu_torch.models.swin_unetr import init_parameters
+from fetal_mri_segmentation_tpu_torch.models import mednext, swin_unetr
 from fetal_mri_segmentation_tpu_torch.parallel.data_parallel import make_mesh
 from fetal_mri_segmentation_tpu_torch.parallel.distributed import (
     build_kernels_before_ranks, free_port, initialize_distributed,
@@ -87,6 +87,10 @@ from fetal_mri_segmentation_tpu_torch.utils.keras_migrate import (
 from fetal_mri_segmentation_tpu_torch.utils.params import (
     from_flax, init_flax_like, load_npz_train_state)
 from fetal_mri_segmentation_tpu_torch.utils.profiling import trace
+
+# the families with no flax counterpart start from their own seeded init
+OWN_INIT = {"swin_unetr": swin_unetr.init_parameters,
+            "mednext": mednext.init_parameters}
 
 
 def fetch_training_data_files(data_dir: str, modalities, truth_name="truth"):
@@ -186,9 +190,9 @@ def _train(config, *, mesh, init_params, from_keras, device, seed, verbose,
                           + (f" and Adam state at step {state.step}, lr "
                              f"{state.learning_rate:g}" if with_adam
                              else ""))
-            elif not resuming and config.model_name == "swin_unetr":
+            elif not resuming and config.model_name in OWN_INIT:
                 # no flax counterpart: the model's own seeded init
-                init_parameters(model, seed)
+                OWN_INIT[config.model_name](model, seed)
             elif not resuming:
                 model.load_state_dict(from_flax(init_flax_like(config,
                                                                seed)))

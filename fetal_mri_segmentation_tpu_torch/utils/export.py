@@ -133,7 +133,9 @@ def export_predictor(model, config, image_shape: Sequence[int], path: str,
     "flips": 8), as ``predict --tta`` does; ``direct`` serializes the
     direct whole-volume forward instead of the sliding window, the volume
     checked here, at export time. ``platforms``: see the module docstring;
-    ``["cuda"]`` raises unless ``model`` is on a CUDA device."""
+    ``["cuda"]`` raises unless ``model`` is on a CUDA device. A ``mednext``
+    model raises: its program is not exported (``predict`` and ``serve``
+    run it from the port's checkpoint)."""
     from fetal_mri_segmentation_tpu_torch.inference.labelmaps import (
         label_map_dtype)
     from fetal_mri_segmentation_tpu_torch.inference.sliding_window import (
@@ -143,6 +145,9 @@ def export_predictor(model, config, image_shape: Sequence[int], path: str,
     from fetal_mri_segmentation_tpu_torch.parallel.spatial import (
         make_direct_predictor)
 
+    if config.model_name == "mednext":
+        raise ValueError("mednext: predict --export is not supported; predict "
+                         "and serve run the model from the port's checkpoint")
     plats = _platforms(platforms)
     device = next(model.parameters()).device
     if "cpu" not in plats and device.type != "cuda":

@@ -125,12 +125,15 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def flax_params(model) -> dict:
     """``model``'s parameters (no running statistics) as a nested flax
     params tree in fp32 numpy: what the JAX Keras mappings take as
-    ``variables["params"]``. A ``SwinUNETR`` has no such tree and
-    raises."""
+    ``variables["params"]``. A ``SwinUNETR`` or a ``MedNeXt`` has no such
+    tree and raises."""
+    from fetal_mri_segmentation_tpu_torch.models.mednext import MedNeXt
     from fetal_mri_segmentation_tpu_torch.models.swin_unetr import SwinUNETR
 
     if isinstance(model, SwinUNETR):
         check_interop("swin_unetr")
+    if isinstance(model, MedNeXt):
+        check_interop("mednext")
     return unflatten(to_flax(dict(model.named_parameters())))
 
 

@@ -11,6 +11,7 @@ files that either side reads back as the other wrote them."""
 import dataclasses
 import glob
 import os
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -33,13 +34,22 @@ ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(ROOT / "configs" / "*.json")))
 
 
+def _shared(d: dict) -> dict:
+    """A port config's dict without the port's own fields (``PORT_ONLY``,
+    read for the port's own families only)."""
+    return {k: v for k, v in d.items() if k not in port_config.PORT_ONLY}
+
+
 def test_config_fields_and_defaults_equal():
+    """The JAX ``Config``'s fields in its order and with its defaults, then
+    the port's own (``PORT_ONLY``) at the end."""
     jax_fields = dataclasses.fields(jax_config.Config)
     port_fields = dataclasses.fields(port_config.Config)
-    assert [f.name for f in port_fields] == [f.name for f in jax_fields]
+    assert [f.name for f in port_fields] == (
+        [f.name for f in jax_fields] + list(port_config.PORT_ONLY))
     for a, b in zip(jax_fields, port_fields):
         assert a.default == b.default, a.name
-    assert (dataclasses.asdict(port_config.Config())
+    assert (_shared(dataclasses.asdict(port_config.Config()))
             == dataclasses.asdict(jax_config.Config()))
     assert (port_config.Config(model_name="isensee").depth
             == jax_config.Config(model_name="isensee").depth == 5)
@@ -49,7 +59,7 @@ def test_config_fields_and_defaults_equal():
 def test_config_load_equal(path):
     port = port_config.Config.load(path)
     want = jax_config.Config.load(path)
-    assert dataclasses.asdict(port) == dataclasses.asdict(want)
+    assert _shared(dataclasses.asdict(port)) == dataclasses.asdict(want)
     assert port.to_dict() == want.to_dict()
 
 
@@ -68,7 +78,14 @@ def test_config_round_trips_through_json(tmp_path):
     cfg = port_config.Config(image_shape=(32, 40, 48), depth=3,
                              labels=(1, 4), n_labels=2)
     cfg.save(str(tmp_path / "c.json"))
-    assert (dataclasses.asdict(jax_config.Config.load(str(tmp_path / "c.json")))
+    # a U-Net's saved config carries none of the port's own fields, so
+    # the JAX Config loads it without a warning
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        loaded = jax_config.Config.load(str(tmp_path / "c.json"))
+    assert dataclasses.asdict(loaded) == _shared(dataclasses.asdict(cfg))
+    assert (dataclasses.asdict(port_config.Config.load(str(tmp_path
+                                                           / "c.json")))
             == dataclasses.asdict(cfg))
 
 
@@ -441,3 +458,60 @@ def test_swin_family_forward_equals_the_reference(quant):
         got = _swin_family().forward(w, x, cfg, q)
         want = ref.forward(w, x, cfg, q)
     assert torch.equal(got, want)
+
+
+# the plain MedNeXt reference at the repository's root and its copy in the
+# benchmark's family file, which may not import it
+MEDNEXT_SHARED = ("tables", "param_spec", "conv", "group_norm", "block",
+                  "run_block", "network")
+MEDNEXT_CFG = {"model_name": "mednext", "n_base_filters": 8, "n_labels": 1,
+               "mednext_size": "L", "mednext_kernel": 5,
+               "compute_dtype": "float32"}
+
+
+def _mednext_family():
+    from perfbench.families import family
+
+    return family({"model_name": "mednext"})
+
+
+def test_mednext_family_source_copies_the_reference():
+    import inspect
+
+    from reference import mednext as ref
+
+    fam = _mednext_family()
+    for name in MEDNEXT_SHARED:
+        assert (inspect.getsource(getattr(fam, name))
+                == inspect.getsource(getattr(ref, name))), name
+    for name in ("SIZES", "GN_EPS", "LEVELS", "UP_PAD"):
+        assert getattr(fam, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "float8"])
+def test_mednext_family_forward_equals_the_reference(quant):
+    """The family's forward and the reference's on the benchmark's seeded
+    weights (``perfbench/inputs.py::make_weights``), plain and with the
+    float8 control's rounding (operands e4m3, each conv's output gradient
+    e5m2): logits and every leaf's gradient equal bit for bit."""
+    import torch
+
+    from perfbench import inputs
+    from perfbench.reference.models import _GradFP8, quantize_fp8
+    from reference import mednext as ref
+
+    w = inputs.make_weights(MEDNEXT_CFG, 2 ** 31 + 5, "cpu")
+    x = torch.randn((1, 1, 32, 32, 32),
+                    generator=torch.Generator().manual_seed(3))
+    runs = []
+    for forward, grad in ((_mednext_family().forward, None),
+                          (ref.forward, _GradFP8.apply if quant else None)):
+        p = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        kw = {} if forward is not ref.forward else {"grad": grad}
+        out = forward(p, x, MEDNEXT_CFG, quantize_fp8 if quant else None,
+                      **kw)
+        grads = torch.autograd.grad(out.square().mean(), list(p.values()))
+        runs.append((out.detach(), grads))
+    (got, got_g), (want, want_g) = runs
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_g, want_g))

@@ -32,6 +32,7 @@ from fetal_mri_segmentation_tpu.ops import pallas_conv_flat as PCF  # noqa: E402
 from fetal_mri_segmentation_tpu.ops import pallas_dec0 as PD  # noqa: E402
 from torch import nn  # noqa: E402
 
+from fetal_mri_segmentation_tpu_torch.models import mednext  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models import swin_unetr as swin  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models.layers import ConvBlock, _part  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.models.unet3d import UNet3D  # noqa: E402
@@ -352,6 +353,36 @@ def _attention_bias_case(monkeypatch):
             table, att.relative_position_index, 8, None, BF16)]
 
 
+def _depthwise_case(monkeypatch):
+    conv = mednext.DepthwiseConv3d(8, 3)
+    x = torch.randn(1, 4, 4, 4, 8, dtype=BF16)
+    seen = _spy(monkeypatch, torch.nn.functional, "conv3d", 1)
+    return conv.weight, lambda: _recorded(seen, lambda: conv(x)), lambda: [
+        conv.weight.to(BF16)]
+
+
+def _flipped_case(monkeypatch):
+    conv = mednext.DepthwiseConv3d(8, 3, 2, transposed=True)
+    x = torch.randn(1, 2, 2, 2, 8, dtype=BF16)
+    seen = _spy(monkeypatch, torch.nn.functional, "conv3d", 1)
+    return conv.weight, lambda: _recorded(seen, lambda: conv(x)), lambda: [
+        conv.weight.to(BF16).flip(2, 3, 4)]
+
+
+def _channels_last_case(monkeypatch):
+    w = nn.Parameter(torch.randn(16, 8, 1, 1, 1))
+    return w, lambda: [mednext._channels_last(w, BF16)], lambda: [
+        w.to(BF16).contiguous(memory_format=torch.channels_last_3d)]
+
+
+def _pointwise_case(monkeypatch):
+    conv = nn.Conv3d(8, 16, 1)
+    x = torch.randn(2, 2, 2, 2, 8, dtype=BF16)
+    seen = _spy(monkeypatch, torch.nn.functional, "linear", 1)
+    return conv.weight, lambda: _recorded(seen, lambda: mednext._pointwise(
+        x, conv)), lambda: [conv.weight.to(BF16).reshape(16, 8)]
+
+
 OPERAND_CASES = {
     "dhwio": _dhwio_case,
     "part": _part_case,
@@ -361,6 +392,10 @@ OPERAND_CASES = {
     "swin_layer_norm": _layer_norm_case,
     "transposed_conv": _transposed_case,
     "attention_bias": _attention_bias_case,
+    "mednext_depthwise": _depthwise_case,
+    "mednext_flipped": _flipped_case,
+    "mednext_channels_last": _channels_last_case,
+    "mednext_pointwise": _pointwise_case,
 }
 
 

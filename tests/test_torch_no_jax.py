@@ -20,7 +20,8 @@ group through ``initialize_distributed`` and takes a data-parallel cached
 step, a GSPMD step on a 1 x 1 hybrid mesh and predicts with the spatial
 and the patch-grid sharded predictors);
 a bf16 Swin UNETR predicts through the sliding window near the plain
-reference ``reference/swin_unetr.py`` (imported under the same refusals);
+reference ``reference/swin_unetr.py`` (imported under the same refusals),
+and so does a bf16 MedNeXt near ``reference/mednext.py``;
 ``device="cuda"`` raises on this CUDA-less machine (the port's bench,
 ``fetal_mri_segmentation_tpu_torch.bench``, imports with the root
 ``bench.py`` refused too); and ``chip_smoke.py``
@@ -372,6 +373,22 @@ with torch.no_grad():
         torch.from_numpy(sx)[None], {"n_base_filters": 12, "n_labels": 1})
 assert np.abs(sprob - torch.sigmoid(slogit)[0].numpy()).max() < 0.05
 assert window_attention.window_attention.calls["composite"] == 8
+
+# MedNeXt (L tables, kernel 5): the port's bf16 sliding window and the plain
+# reference (reference/mednext.py) on one 32^3 patch
+from reference import mednext as mednext_ref
+mcfg = Config(model_name="mednext", n_base_filters=8, mednext_size="L",
+              mednext_kernel=5, image_shape=(32, 32, 32),
+              patch_shape=(32, 32, 32))
+mmodel = build_model(mcfg, "cpu")
+mprob = SlidingWindowPredictor(mmodel, mcfg, mcfg.image_shape, overlap=0)(sx)
+with torch.no_grad():
+    mlogit = mednext_ref.forward(
+        {k: v.float() for k, v in mmodel.state_dict().items()},
+        torch.from_numpy(sx)[None],
+        {"n_base_filters": 8, "n_labels": 1, "mednext_size": "L",
+         "mednext_kernel": 5})
+assert np.abs(mprob - torch.sigmoid(mlogit)[0].numpy()).max() < 0.05
 
 loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
 assert not loaded, loaded

@@ -28,14 +28,18 @@ from fetal_mri_segmentation_tpu_torch.data.build import open_data_file  # noqa: 
 from fetal_mri_segmentation_tpu_torch.utils.io_utils import pickle_load  # noqa: E402
 from fetal_mri_segmentation_tpu_torch.utils.nifti import load_nifti  # noqa: E402
 
+from fetal_mri_segmentation_tpu_torch import config as port_config  # noqa: E402
+
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(device="cpu", n_cases=4, image=(16, 16, 16))
 NO_LAUNCHES = {"conv3x3": 0, "conv3x3_flat": 0,
                "up_concat_conv3x3_kernel": 0}
-# what differs between a tool's config and its JAX twin's by design
+# what differs between a tool's config and its JAX twin's by design (and
+# the port's own Config fields, which the JAX Config does not have)
 PORT_ONLY = {"use_pallas_conv", "use_pallas_dec0", "data_file", "model_file",
-             "training_file", "validation_file", "training_log"}
+             "training_file", "validation_file", "training_log",
+             *port_config.PORT_ONLY}
 
 
 def _load(name, path):
